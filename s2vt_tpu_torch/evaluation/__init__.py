@@ -1,0 +1,4 @@
+"""Greedy decoding over dataset splits (counterpart of ``s2vt_tpu.evaluation``)."""
+
+from s2vt_tpu_torch.evaluation.decode import (CaptionDecoder, greedy_eval,  # noqa: F401
+                                              ids_to_sentence, model_from_checkpoint)

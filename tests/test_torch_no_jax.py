@@ -1,0 +1,30 @@
+"""The port stands alone: every module of s2vt_tpu_torch imports with JAX
+blocked, and none of them loads the JAX package s2vt_tpu."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.modules['jax'] = None
+import s2vt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(s2vt_tpu_torch.__path__, 's2vt_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(k for k in sys.modules if k == 's2vt_tpu' or k.startswith('s2vt_tpu.'))
+jax_loaded = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax')
+                    and sys.modules[k] is not None)
+print(len(names), leaked, jax_loaded)
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, leaked, jax_loaded = proc.stdout.strip().split(" ", 2)
+    assert int(n_modules) >= 15
+    assert (leaked, jax_loaded) == ("[]", "[]"), proc.stdout
