@@ -4,8 +4,10 @@ Counterpart of ``s2vt_tpu/data/dataset.py``. Batches have static shapes —
 [B, L, feat_dim] feats, [B, L] labels/mask — and the final partial batch is
 zero-padded to the batch size with a per-sample ``valid`` weight. Label
 sampling is seeded by (seed, epoch) exactly as in the JAX package, so both
-see the same batches. The C++ ``native`` reader and device prefetching are
-not ported yet.
+see the same batches. A consumer that keeps the whole split on the card
+(the trainer's feature bank) reads it once with ``load_all_features`` and
+asks for batches without features (``include_feats=False``). The C++
+``native`` reader and device prefetching are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from s2vt_tpu_torch.data.corpus import load_captions, special_token_indices
 
 
 class Batch(NamedTuple):
-    feats: np.ndarray    # [B, L, feat_dim] float32
+    feats: Optional[np.ndarray]  # [B, L, feat_dim] float32 (None when the
+    #   consumer gathers from a device-resident feature bank by `rows`)
     labels: np.ndarray   # [B, max_len] int32
     mask: np.ndarray     # [B, max_len] float32 (1 over real tokens incl. <sos>/<eos>)
     valid: np.ndarray    # [B] float32 (0 for padding samples in the last batch)
@@ -81,14 +84,32 @@ class VideoDataset:
         mask[:len(tokens)] = 1.0
         return label, mask
 
+    def load_all_features(self) -> np.ndarray:
+        """The whole split as one [N, feat_len, feat_dim] float32 array, row i
+        from feat_paths[i]: the host copy of a device feature bank."""
+        out = np.empty((len(self.feat_paths), self.feat_len, self.feat_dim), np.float32)
+        for i in range(len(self.feat_paths)):
+            out[i] = self._load_feat(i)
+        return out
+
+    def nbytes(self) -> int:
+        """Bytes of the split's features as float32."""
+        return len(self.feat_paths) * self.feat_len * self.feat_dim * 4
+
     def batches(self, batch_size: int, shuffle: Optional[bool] = None,
-                epoch: int = 0) -> Iterator[Batch]:
-        """Yield fixed-shape batches, deterministic given (seed, epoch)."""
+                epoch: int = 0, drop_last: bool = False,
+                include_feats: bool = True) -> Iterator[Batch]:
+        """Yield fixed-shape batches, deterministic given (seed, epoch).
+        ``include_feats=False`` reads no features (Batch.feats is None), for
+        consumers that gather from a feature bank by ``Batch.rows``; label
+        sampling is the same either way."""
         if shuffle is None:
             shuffle = self.mode == "train"
         n = len(self.feat_paths)
         rng = np.random.default_rng((self.seed, epoch))
         order = rng.permutation(n) if shuffle else np.arange(n)
+        if drop_last:
+            order = order[:(n // batch_size) * batch_size]
 
         for start in range(0, len(order), batch_size):
             idx = order[start:start + batch_size]
@@ -98,13 +119,15 @@ class VideoDataset:
             valid = np.zeros((B,), np.float32)
             rows = np.zeros((B,), np.int32)
             ids = [""] * B
-            feats = np.zeros((B, self.feat_len, self.feat_dim), np.float32)
+            feats = (np.zeros((B, self.feat_len, self.feat_dim), np.float32)
+                     if include_feats else None)
             for row, i in enumerate(idx):
                 vid = self.feat_paths[i].stem
                 caps = self.captions[vid]
                 cap = caps[rng.integers(len(caps))]
                 labels[row], mask[row] = self._encode_caption(cap)
-                feats[row] = self._load_feat(i)
+                if include_feats:
+                    feats[row] = self._load_feat(i)
                 valid[row] = 1.0
                 rows[row] = i
                 ids[row] = vid

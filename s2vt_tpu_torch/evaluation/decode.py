@@ -20,7 +20,7 @@ from s2vt_tpu_torch.config import Opt
 from s2vt_tpu_torch.data.dataset import VideoDataset
 from s2vt_tpu_torch.models.s2vt import S2VT
 from s2vt_tpu_torch.training.checkpoint import load_checkpoint, load_config
-from s2vt_tpu_torch.training.loop import build_model
+from s2vt_tpu_torch.training.loop import build_model, pad_to_multiple
 from s2vt_tpu_torch.utils.device import resolve_device
 from s2vt_tpu_torch.utils.weights import params_from_jax
 
@@ -64,10 +64,6 @@ class CaptionDecoder:
                 preds[vid] = ids_to_sentence(out[row], self.dataset.ix2word,
                                              self.eos_ix, pad_ix=self.pad_ix)
         return preds
-
-
-def pad_to_multiple(n: int, multiple: int) -> int:
-    return -(-n // multiple) * multiple
 
 
 def model_from_checkpoint(checkpoint_path: str, real_vocab: int,

@@ -9,8 +9,9 @@ steps. ``word_rnn`` sees [zero embedding; vid_out] for the first L
 (encoding) steps and [token embedding; vid_out] for the last L-1 (decoding)
 steps; only the decoding-stage outputs are projected to the vocabulary.
 
-With ``use_pallas`` on and ``fused_shapes_ok``, both LSTM chains of the
-encode run in one launch of the fused kernel (``ops/fused_s2vt.py``).
+With ``use_pallas`` on and ``fused_shapes_ok``, both LSTM chains run in one
+launch of the fused kernel (``ops/fused_s2vt.py``), and a training step's
+backward in one launch of the fused backward kernel.
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ class S2VT(nn.Module):
     def teacher_forced(self, feats, targets, deterministic: bool = False,
                        generator: Optional[torch.Generator] = None):
         """Training pass (S2VTModel.py:69-81): one scan per RNN, or with
-        ``use_pallas`` both layers in the fused forward (no gradient yet).
+        ``use_pallas`` both layers in the fused kernels, forward and backward.
 
         feats: [B, L, feat_dim]; targets: [B, L-1] token ids.
         Returns logits [B, L-1, vocab].

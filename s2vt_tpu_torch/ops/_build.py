@@ -15,7 +15,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -45,21 +45,44 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library already exists."""
+def _start(name: str):
+    """(library path, temporary output, nvcc process or None if built)."""
     out = library_path(name)
     if out.exists():
-        return out
+        return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
-    build_logs[name] = proc.stdout + proc.stderr
-    os.replace(tmp, out)   # atomic: a concurrent build never loads a partial file
-    return out
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)
+
+
+def build_all(names: Sequence[str]) -> List[pathlib.Path]:
+    """Compile ``csrc/<name>.cu`` for each name whose library does not exist
+    yet, one ``nvcc`` per source, all running at once."""
+    started = [(name, *_start(name)) for name in names]
+    try:
+        for name, out, tmp, proc in started:
+            if proc is None:
+                continue
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{stdout}{stderr}")
+            build_logs[name] = stdout + stderr
+            os.replace(tmp, out)   # atomic: a concurrent build never loads a partial file
+    finally:
+        for _, _, tmp, proc in started:     # after a failure: stop the other compiles
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+    return [out for _, out, _, _ in started]
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless its library already exists."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,7 @@
-"""Model factory and checkpoint loading (counterpart of ``s2vt_tpu.training``)."""
+"""Training harness (counterpart of ``s2vt_tpu.training``)."""
 
+from s2vt_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau  # noqa: F401
 from s2vt_tpu_torch.training.checkpoint import (load_checkpoint, load_config,  # noqa: F401
-                                                save_checkpoint)
-from s2vt_tpu_torch.training.loop import build_model  # noqa: F401
+                                                load_training_state, save_checkpoint,
+                                                save_training_state)
+from s2vt_tpu_torch.training.loop import Trainer, batch_loss, build_model  # noqa: F401

@@ -56,6 +56,18 @@ def test_build_compiles_once_and_names_by_source(toolkit):
     assert _build.library_path("k") != out
 
 
+def test_build_all_compiles_every_source_once(toolkit):
+    csrc, build_dir, make_nvcc = toolkit
+    (csrc / "k2.cu").write_text("// second kernel\n")
+    make_nvcc(fail=False)
+    first = _build.build("k")
+    _build.build_logs.clear()
+    outs = _build.build_all(["k", "k2"])
+    assert outs[0] == first and outs[1].name.startswith("k2-")
+    assert set(_build.build_logs) == {"k2"}             # k was reused, k2 compiled
+    assert sorted(os.listdir(build_dir)) == sorted(p.name for p in outs)
+
+
 def test_build_reports_compiler_errors(toolkit):
     _, build_dir, make_nvcc = toolkit
     make_nvcc(fail=True)

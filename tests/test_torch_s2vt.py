@@ -88,11 +88,38 @@ def test_teacher_forced_logits_match_jax(data, route):
                                else 1e-4, rtol=0)
 
 
-def test_fused_teacher_forced_refuses_autograd(data):
+def _port_grads(params, feats, targets, **kw):
+    """Gradients of sum(logits^2) * 1e-3 (tests/test_pallas_s2vt.py:106-123)
+    for every parameter and the features, as {JAX path: array}."""
+    m = port_model(params, **kw)
+    f = torch.from_numpy(feats).requires_grad_()
+    logits = m(f, torch.from_numpy(targets).long(), mode="train", deterministic=True)
+    ((logits ** 2).sum() * 1e-3).backward()
+    grads = {k.replace(".", "//"): p.grad.numpy() for k, p in m.named_parameters()}
+    return grads, f.grad.numpy()
+
+
+def test_fused_teacher_forced_gradients_match_jax(data):
+    """The fused route's parameter and feature gradients against jax.grad of
+    the JAX model's fused route (Pallas backward in interpret mode) and
+    against the port's scan route, at 2e-3 (tests/test_pallas_s2vt.py:122)."""
     params, feats, targets = data
-    m = port_model(params, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        m(torch.from_numpy(feats), torch.from_numpy(targets).long(), mode="train")
+
+    def loss(p, f):
+        logits = JS2VT(use_pallas=True, **KW).apply(
+            {"params": p}, f, jnp.asarray(targets), mode="train", deterministic=True)
+        return jnp.sum(logits ** 2) * 1e-3
+
+    jp, jf = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(feats))
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, jp))
+    got, got_f = _port_grads(params, feats, targets, use_pallas=True)
+    scan, scan_f = _port_grads(params, feats, targets)
+    assert set(got) == set(want) == set(scan)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=2e-3, rtol=2e-3, err_msg=k)
+        np.testing.assert_allclose(got[k], scan[k], atol=2e-3, rtol=2e-3, err_msg=k)
+    np.testing.assert_allclose(got_f, np.asarray(jf), atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(got_f, scan_f, atol=2e-3, rtol=2e-3)
 
 
 def test_scan_teacher_forced_is_differentiable(data):
