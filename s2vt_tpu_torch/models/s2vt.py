@@ -11,7 +11,10 @@ steps; only the decoding-stage outputs are projected to the vocabulary.
 
 With ``use_pallas`` on and ``fused_shapes_ok``, both LSTM chains run in one
 launch of the fused kernel (``ops/fused_s2vt.py``), and a training step's
-backward in one launch of the fused backward kernel.
+backward in one launch of the fused backward kernel. Where the fused kernels
+do not apply (``num_layers > 1``, and the beam encode over the raw L steps),
+``vid_rnn`` and ``word_rnn`` run each layer through the per-layer sequence
+kernels (``ops/fused_rnn.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from s2vt_tpu_torch.models import beam as beam_mod
 from s2vt_tpu_torch.ops.layers import (TorchEmbedding, TorchLinear, apply_linear,
                                        dropout, mask_invalid_vocab)
 from s2vt_tpu_torch.ops.rnn import LSTMState, TorchRNN, input_projection, multilayer_step
@@ -107,15 +111,17 @@ class S2VT(nn.Module):
     # modes
     # ------------------------------------------------------------------
 
-    def forward(self, feats, targets=None, mode: str = "train",
-                deterministic: Optional[bool] = None, early_stop: bool = False,
+    def forward(self, feats, targets=None, mode: str = "train", beam_width: int = 3,
+                max_beam_depth: int = 30, deterministic: Optional[bool] = None,
+                beam_score_mode: str = "cumulative", early_stop: bool = False,
                 generator: Optional[torch.Generator] = None):
         """Dispatch like the reference forward (S2VTModel.py:39-61).
 
         mode='train' -> logits [B, L-1, V] (teacher forcing)
         mode='test'  -> greedy token ids [B, L-1]; early_stop=True exits
             when every row has emitted <eos>
-        mode='beam_search' -> not ported yet
+        mode='beam_search' -> BeamResult (tokens [B, W, D+1], lengths [B, W],
+            scores [B, W])
         """
         if deterministic is None:
             deterministic = mode != "train"
@@ -124,8 +130,7 @@ class S2VT(nn.Module):
         if mode == "test":
             return self.greedy(feats, early_stop=early_stop)
         if mode == "beam_search":
-            raise NotImplementedError(
-                "beam search is not ported yet (ROADMAP.md queue 1, beam: models/beam.py)")
+            return self.beam(feats, beam_width, max_beam_depth, score_mode=beam_score_mode)
         raise ValueError(f"unknown mode {mode!r}")
 
     def teacher_forced(self, feats, targets, deterministic: bool = False,
@@ -213,3 +218,44 @@ class S2VT(nn.Module):
             else:
                 tokens[t] = word
         return tokens.transpose(0, 1).to(torch.int32)                 # [B, L-1]
+
+    @torch.no_grad()
+    def encode_for_beam(self, feats):
+        """Beam-mode encoding (S2VTModel.py:56-60): vid_rnn over the RAW L
+        steps (no zero padding, unlike train and greedy), then word_rnn over
+        [zeros; output1] for its encoding state. Returns (states1, states2),
+        one LSTMState per layer each."""
+        B = feats.shape[0]
+        feats = self._project_feats(feats, True)
+        output1, states1 = self.vid_rnn(feats, deterministic=True)
+        input2 = torch.cat([self._zeros(B, self.length, self.dim_embed), output1], dim=-1)
+        _, states2 = self.word_rnn(input2, deterministic=True)
+        return states1, states2
+
+    @torch.no_grad()
+    def beam(self, feats, beam_width: int = 3, max_depth: int = 30,
+             length_norm_alpha: float = 0.7, expand_k: int = 20,
+             score_mode: str = "cumulative") -> beam_mod.BeamResult:
+        """Batched fixed-shape beam search (vs S2VTModel.py:149-269)."""
+        states1, states2 = self.encode_for_beam(feats)
+        emb_table = self.embedding.weight
+        vid_layers, word_layers = self.vid_rnn.layers, self.word_rnn.layers
+        out_w, out_b = self.out_linear.weight, self.out_linear.bias
+
+        def step_fn(states, word):
+            """(states1, states2), word ids [N] -> new states, log-probs [N, V].
+            Each step continues vid_rnn with a zero input (S2VTModel.py:208-210)
+            and feeds [embed(word); vid_out] to word_rnn."""
+            st1, st2 = states
+            st1, vid_out = multilayer_step(st1, self._zeros(word.shape[0], self.dim_hid),
+                                           vid_layers, self.rnn_type, self.compute_dtype)
+            x = torch.cat([emb_table[word], vid_out], dim=-1)
+            st2, h = multilayer_step(st2, x, word_layers, self.rnn_type, self.compute_dtype)
+            logits = apply_linear(h, out_w, out_b, self.compute_dtype)
+            logits = mask_invalid_vocab(logits, self.valid_vocab)
+            return (st1, st2), torch.log_softmax(logits.float(), dim=-1)
+
+        return beam_mod.beam_search(
+            step_fn, (states1, states2), sos_ix=self.sos_ix, eos_ix=self.eos_ix,
+            vocab_size=self.vocab_size, beam_width=beam_width, max_depth=max_depth,
+            alpha=length_norm_alpha, expand_k=expand_k, score_mode=score_mode)

@@ -1,10 +1,14 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources into shared libraries, load them, and
+launch their kernels.
 
 Each ``s2vt_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root of the
 checkout, on first use, and loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited source builds anew; a finished library is
-reused by later processes. Nothing here runs at import time.
+reused by later processes. Each library exports a launch function with a
+plain C interface (pointers, ints, the card's index and a stream) that
+returns a ``cudaError_t``, and ``s2vt_cuda_error_string``. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import pathlib
 import shutil
 import subprocess
 from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -86,5 +92,31 @@ def build(name: str) -> pathlib.Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library for ``csrc/<name>.cu``, built if it does not exist yet."""
-    return ctypes.CDLL(str(build(name)))
+    """The library for ``csrc/<name>.cu``, built if it does not exist yet.
+    Every source exports ``s2vt_cuda_error_string(int)``."""
+    lib = ctypes.CDLL(str(build(name)))
+    lib.s2vt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.s2vt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_cuda(name: str, tensors) -> None:
+    """Raise unless ``tensors`` are contiguous CUDA tensors: what a kernel
+    wrapper checks before it loads or launches anything."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+
+
+def launch(lib: ctypes.CDLL, entry: str, name: str, tensors, ints) -> None:
+    """Call the C entry point ``entry`` of ``lib`` with the pointers of
+    ``tensors`` (checked by ``check_cuda``), ``ints``, the card's index and
+    PyTorch's current stream, and raise if it returns a CUDA error."""
+    dev = tensors[0].device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints, index,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.s2vt_cuda_error_string(err).decode()} "
+                           f"(cudaError {err})")

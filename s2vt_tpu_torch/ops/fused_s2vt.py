@@ -207,8 +207,6 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.s2vt_fused_fwd.restype = ci
     lib.s2vt_fused_fwd_smem_bytes.argtypes = [ci, ci]
     lib.s2vt_fused_fwd_smem_bytes.restype = ctypes.c_size_t
-    lib.s2vt_cuda_error_string.argtypes = [ci]
-    lib.s2vt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -221,10 +219,7 @@ def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
         return fused_s2vt_fwd_reference(x1, x2, w1hh, w2v, w2hh, snap_idx)
     _check_args(x1, x2, w1hh, w2v, w2hh, snap_idx)
     tensors = (x1, x2, w1hh, w2v, w2hh)
-    if x1.device.type != "cuda":
-        raise ValueError(f"fused_s2vt_fwd runs on CUDA or CPU tensors, got {x1.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_s2vt_fwd needs contiguous inputs")
+    _build.check_cuda("fused_s2vt_fwd", tensors)
     T, B, G = x1.shape
     H = G // 4
     if H % 2:
@@ -238,14 +233,8 @@ def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
     c2 = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     fin = torch.empty(6, B, H, dtype=torch.float32, device=dev)
     hbuf = torch.zeros(2, B, 2 * H, dtype=torch.float32, device=dev)
-    ptrs = [t.data_ptr() for t in (*tensors, g1, c1, g2, c2, fin, hbuf)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.s2vt_fused_fwd(*ptrs, T, B, H, units, snap_idx, int(mmd == torch.bfloat16),
-                             dev.index if dev.index is not None else torch.cuda.current_device(),
-                             stream)
-    if err != 0:
-        raise RuntimeError(f"fused_s2vt_fwd launch failed: "
-                           f"{lib.s2vt_cuda_error_string(err).decode()} (cudaError {err})")
+    _build.launch(lib, "s2vt_fused_fwd", "fused_s2vt_fwd", (*tensors, g1, c1, g2, c2, fin, hbuf),
+                  (T, B, H, units, snap_idx, int(mmd == torch.bfloat16)))
     fused_s2vt_fwd.launches += 1
     return (g1, c1, g2, c2, *fin.unbind(0))
 
@@ -264,8 +253,6 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     lib.s2vt_fused_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.s2vt_fused_bwd_units_per_block.argtypes = []
     lib.s2vt_fused_bwd_units_per_block.restype = ci
-    lib.s2vt_cuda_error_string.argtypes = [ci]
-    lib.s2vt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -278,10 +265,7 @@ def fused_s2vt_bwd(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh):
         return fused_s2vt_bwd_reference(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh)
     _check_bwd_args(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh)
     tensors = (g1, c1, g2, c2, dout2, w1hh, w2v, w2hh)
-    if g1.device.type != "cuda":
-        raise ValueError(f"fused_s2vt_bwd runs on CUDA or CPU tensors, got {g1.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_s2vt_bwd needs contiguous inputs")
+    _build.check_cuda("fused_s2vt_bwd", tensors)
     T, B, G = g1.shape
     H = G // 4
     if H % 2:
@@ -292,14 +276,8 @@ def fused_s2vt_bwd(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh):
     dxp1 = torch.empty(T, B, G, dtype=mmd, device=dev)
     dxp2 = torch.empty(T, B, G, dtype=mmd, device=dev)
     dc = torch.zeros(2, B, H, dtype=torch.float32, device=dev)
-    ptrs = [t.data_ptr() for t in (*tensors, dxp1, dxp2, dc)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.s2vt_fused_bwd(*ptrs, T, B, H, int(mmd == torch.bfloat16),
-                             dev.index if dev.index is not None else torch.cuda.current_device(),
-                             stream)
-    if err != 0:
-        raise RuntimeError(f"fused_s2vt_bwd launch failed: "
-                           f"{lib.s2vt_cuda_error_string(err).decode()} (cudaError {err})")
+    _build.launch(lib, "s2vt_fused_bwd", "fused_s2vt_bwd", (*tensors, dxp1, dxp2, dc),
+                  (T, B, H, int(mmd == torch.bfloat16)))
     fused_s2vt_bwd.launches += 1
     return dxp1, dxp2
 

@@ -11,7 +11,8 @@ GRU (r, z, n):      n = tanh(gi_n + r * (h @ W_hn^T + b_hn))
 The cells are explicit rather than ``nn.LSTM`` because the reference's bf16
 mode (bf16 matmul operands, float32 state and gate math) is not what
 ``nn.LSTM`` does in bf16. The input projection of a whole sequence is one
-matmul outside the time loop.
+matmul outside the time loop. With ``use_pallas``, ``TorchRNN`` runs LSTM
+layers through the per-layer sequence kernels (``ops/fused_rnn.py``).
 """
 
 from __future__ import annotations
@@ -90,15 +91,31 @@ def rnn_sequence(xs: torch.Tensor, params, h0: Optional[LSTMState] = None,
     return torch.stack(outs, dim=1), state
 
 
+def lstm_kernel_sequence(xs: torch.Tensor, params, h0: Optional[LSTMState] = None,
+                         rnn_type: str = "lstm", reverse: bool = False,
+                         compute_dtype=None) -> Tuple[torch.Tensor, LSTMState]:
+    """``rnn_sequence`` for an LSTM through the sequence kernels
+    (``ops/fused_rnn.py::lstm_sequence``). The kernels run forward in time
+    only, so ``reverse`` flips time around them, as the JAX package does."""
+    from s2vt_tpu_torch.ops.fused_rnn import lstm_sequence
+    if not reverse:
+        return lstm_sequence(xs, params, h0, compute_dtype)
+    out, fin = lstm_sequence(torch.flip(xs, dims=[1]), params, h0, compute_dtype)
+    return torch.flip(out, dims=[1]), fin
+
+
 def multilayer_rnn(xs: torch.Tensor, layer_params: Sequence, h0: Optional[Sequence] = None,
                    rnn_type: str = "lstm", bidirectional: bool = False,
                    dropout_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None,
                    deterministic: bool = True,
-                   compute_dtype=None) -> Tuple[torch.Tensor, list]:
+                   compute_dtype=None,
+                   sequence_fn=rnn_sequence) -> Tuple[torch.Tensor, list]:
     """Stacked (optionally bidirectional) RNN with ``nn.LSTM`` semantics:
     dropout between layers only. For bidirectional, ``layer_params`` holds
-    (forward, reverse) pairs. Returns (outputs [B, T, H*dirs], finals)."""
+    (forward, reverse) pairs. ``sequence_fn`` runs one direction of one
+    layer (``rnn_sequence``'s signature). Returns (outputs [B, T, H*dirs],
+    finals)."""
     out = xs
     finals = []
     n_layers = len(layer_params)
@@ -107,12 +124,12 @@ def multilayer_rnn(xs: torch.Tensor, layer_params: Sequence, h0: Optional[Sequen
         if bidirectional:
             fwd_p, bwd_p = lp
             init_f, init_b = init if init is not None else (None, None)
-            out_f, fin_f = rnn_sequence(out, fwd_p, init_f, rnn_type, False, compute_dtype)
-            out_b, fin_b = rnn_sequence(out, bwd_p, init_b, rnn_type, True, compute_dtype)
+            out_f, fin_f = sequence_fn(out, fwd_p, init_f, rnn_type, False, compute_dtype)
+            out_b, fin_b = sequence_fn(out, bwd_p, init_b, rnn_type, True, compute_dtype)
             out = torch.cat([out_f, out_b], dim=-1)
             finals.append((fin_f, fin_b))
         else:
-            out, fin = rnn_sequence(out, lp, init, rnn_type, False, compute_dtype)
+            out, fin = sequence_fn(out, lp, init, rnn_type, False, compute_dtype)
             finals.append(fin)
         if li < n_layers - 1:
             out = dropout(out, dropout_rate, generator, deterministic)
@@ -181,9 +198,24 @@ class TorchRNN(nn.Module):
 
     def forward(self, xs: torch.Tensor, h0=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        if self.use_pallas and xs.is_cuda and self.rnn_type in ("lstm", "gru"):
+        """xs [B, T, in] -> (outputs [B, T, H*dirs], finals per layer). With
+        ``use_pallas``, an LSTM runs each layer and direction through the
+        sequence kernels (on CPU tensors: their plain versions), as the JAX
+        module routes to its Pallas kernel; on a card whose shared memory or
+        SM count ``lstm_seq_shapes_ok`` refuses for this width, it raises."""
+        sequence_fn = rnn_sequence
+        if self.use_pallas and self.rnn_type == "gru" and xs.is_cuda:
             raise NotImplementedError(
-                "per-layer LSTM/GRU sequence kernel on CUDA (ROADMAP.md queue 2, "
-                "kernels #3 and #5) is not ported yet")
+                "the per-layer GRU sequence kernels on CUDA (ROADMAP.md queue 2, "
+                "kernels #5 and #6) are not ported yet")
+        if self.use_pallas and self.rnn_type == "lstm":
+            from s2vt_tpu_torch.ops.fused_rnn import lstm_seq_shapes_ok
+            if not lstm_seq_shapes_ok(self.hidden_size, xs.device):
+                raise NotImplementedError(
+                    f"the LSTM sequence kernels do not serve hidden size {self.hidden_size} "
+                    f"on {xs.device}: their resident weights do not fit one block per SM; "
+                    "build the model with use_pallas=False")
+            sequence_fn = lstm_kernel_sequence
         return multilayer_rnn(xs, self.layers, h0, self.rnn_type, self.bidirectional,
-                              self.dropout, generator, deterministic, self.compute_dtype)
+                              self.dropout, generator, deterministic, self.compute_dtype,
+                              sequence_fn)

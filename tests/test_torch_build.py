@@ -82,3 +82,42 @@ def test_find_nvcc_without_toolkit_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+PORT_SOURCES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py::_fwd_kernel",
+                "fused_s2vt_bwd": "s2vt_tpu/ops/pallas_s2vt.py::_bwd_kernel",
+                "lstm_seq_fwd": "s2vt_tpu/ops/pallas_rnn.py::_fwd_kernel",
+                "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py::_bwd_kernel"}
+
+
+def test_build_all_compiles_every_port_source(tmp_path, monkeypatch):
+    """The port's own csrc/ holds one source per kernel, and build_all starts
+    one (fake) nvcc for each of them."""
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, fail=False))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(PORT_SOURCES)
+    outs = _build.build_all(sorted(PORT_SOURCES))
+    assert [p.name.split("-")[0] for p in outs] == sorted(PORT_SOURCES)
+    assert set(_build.build_logs) == set(PORT_SOURCES)
+
+
+@pytest.mark.parametrize("name", sorted(PORT_SOURCES))
+def test_each_source_names_the_tpu_kernel_it_replaces(name):
+    """Each kernel's source opens with the TPU kernel it replaces, which
+    exists in the JAX package, and exports a launch entry point and the
+    error-string function that ``_build.load`` binds, with a plain C
+    interface."""
+    root = _build.CSRC.parents[1]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    replaced = PORT_SOURCES[name]
+    assert f"// Replaces {replaced}" in text
+    path, func = replaced.split("::")
+    assert f"def {func}(" in (root / path).read_text()
+    assert 'extern "C"' in text and f"int {name.replace('fused_s2vt', 's2vt_fused')}(" in text
+    assert "const char* s2vt_cuda_error_string(int err)" in text

@@ -184,6 +184,13 @@ def test_bf16_greedy_encode_states_match_jax(data):
 
 
 def test_beam_search_raises(data):
+    """Beam search runs (tests/test_torch_beam.py holds it to JAX); it raises
+    only for a score mode it does not have, and forward for an unknown mode."""
     params, feats, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model(params)(torch.from_numpy(feats), mode="beam_search")
+    model = port_model(params)
+    res = model(torch.from_numpy(feats), mode="beam_search", max_beam_depth=3)
+    assert tuple(res.tokens.shape) == (B, 3, 4)
+    with pytest.raises(ValueError, match="score_mode"):
+        model(torch.from_numpy(feats), mode="beam_search", beam_score_mode="last")
+    with pytest.raises(ValueError, match="unknown mode"):
+        model(torch.from_numpy(feats), mode="beam")

@@ -119,12 +119,16 @@ def test_callbacks_match_jax(jax_training):
 
 
 @pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("route", ["scan", "fused"])
+@pytest.mark.parametrize("route", ["scan", "fused", "per_layer"])
 def test_trainer_follows_jax_trainer(jax_training, corpus, tmp_path, route, masked):
     """Three epochs from the JAX Trainer's initial weights: per-epoch train
-    and valid losses and the lr history within rtol 1e-4."""
+    and valid losses and the lr history within rtol 1e-4. ``per_layer`` is a
+    2-layer S2VT with use_pallas: the fused kernels refuse it, so each layer
+    runs through the sequence op (the Pallas kernels of pallas_rnn.py on the
+    JAX side)."""
     jax, _, jtraining, _, jconfig, jparallel = jax_training
-    kw = dict(use_pallas=route == "fused", masked_loss=masked, async_checkpoint=False)
+    kw = dict(use_pallas=route != "scan", masked_loss=masked, async_checkpoint=False,
+              num_layers=2 if route == "per_layer" else 1)
     jopt = jconfig.Opt(**json.loads(small_opt(corpus, tmp_path / "jax", **kw).to_json()))
     jtr = jtraining.Trainer(jopt.replace(mesh_shape=(1, 1)),
                             mesh=jparallel.make_mesh((1, 1)), writer=None)
