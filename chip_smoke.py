@@ -29,6 +29,13 @@ Phases; a failure in any of them exits non-zero before the result line:
               then S2VT.beam at V = 10240, B in {16, 96}, float32 and bf16.
   6. train2   phase 4 with --num_layers 2: each layer of both RNNs runs the
               per-layer sequence kernels; one timed train step at B = 16.
+  7. att      the attention baseline: cli.train --model att_baseline on the
+              corpus of phase 4 (launch counts read around it: the
+              attention-decoder kernel runs the no-gradient validation pass,
+              the sequence kernels the bi-LSTM encoder), greedy_eval and
+              beam_eval of its final checkpoint against the plain route, the
+              kernel routes against the plain routes on one batch, and
+              teacher-forced, train-step, greedy and beam times.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -66,16 +73,20 @@ TRAIN_CLIPS = 128      # corpus clips: 64 train (4 steps of 16), 32 valid, 32 te
 TRAIN_EPOCHS = 2
 SERVE_CLIPS = 96       # serving corpus: 24 test clips, 2 requests of 16
 BEAM_WIDTH, BEAM_DEPTH = 3, 30   # Opt.beam_width, Opt.max_beam_depth
-KERNELS = ("fused_s2vt_fwd", "fused_s2vt_bwd", "lstm_seq_fwd", "lstm_seq_bwd")
+KERNELS = ("fused_s2vt_fwd", "fused_s2vt_bwd", "lstm_seq_fwd", "lstm_seq_bwd",
+           "att_decode_fwd")
 MODULES = {"fused_s2vt_fwd": "fused_s2vt", "fused_s2vt_bwd": "fused_s2vt",
-           "lstm_seq_fwd": "fused_rnn", "lstm_seq_bwd": "fused_rnn"}
+           "lstm_seq_fwd": "fused_rnn", "lstm_seq_bwd": "fused_rnn",
+           "att_decode_fwd": "fused_att_decode"}
 # The device symbol of each kernel, as torch.profiler names it.
 SYMBOLS = {"fused_s2vt_fwd": "s2vt_fused_fwd_kernel", "fused_s2vt_bwd": "s2vt_fused_bwd_kernel",
-           "lstm_seq_fwd": "lstm_seq_fwd_kernel", "lstm_seq_bwd": "lstm_seq_bwd_kernel"}
+           "lstm_seq_fwd": "lstm_seq_fwd_kernel", "lstm_seq_bwd": "lstm_seq_bwd_kernel",
+           "att_decode_fwd": "att_decode_fwd_kernel"}
 REPLACES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py:118",
             "fused_s2vt_bwd": "s2vt_tpu/ops/pallas_s2vt.py:238",
             "lstm_seq_fwd": "s2vt_tpu/ops/pallas_rnn.py:80",
-            "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py:175"}
+            "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py:175",
+            "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py:114"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -149,6 +160,25 @@ def seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
     nbytes = 4 * (T * B * G + 3 * T * B * hid + G * hid + 2 * B * hid   # inputs
                   + T * B * G + 2 * B * hid)                          # dxp, dh0, dc0
     return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
+
+
+def att_decode_bound_ms(B: int, T: int, hid: int, L: int, dtype_name: str):
+    """Least time for the attention-decoder loop: the weights (W_ctx, W_hh,
+    W_att, b_att, w_apply), enc_wh, enc_out, xp and ctx0 read once and the h
+    sequence written once, all float32; against, per step, the
+    2*B*(2H*4H + H*4H + H*H) operations of the gate and dw products at the
+    peak rate of their operand type plus the 8*B*L*H of the scores and the
+    context at the float32 peak."""
+    G = 4 * hid
+    nbytes = 4 * (G * 3 * hid + hid * hid + 2 * hid            # weights
+                  + B * L * 3 * hid + T * B * G + B * 2 * hid  # enc_wh, enc_out, xp, ctx0
+                  + T * B * hid)                               # out
+    products = 2 * T * B * (G * 3 * hid + hid * hid)
+    attention = 8 * T * B * L * hid
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (products / PEAK_FLOPS[dtype_name] + attention / PEAK_FLOPS["float32"]) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            products + attention)
 
 
 def _bound(nbytes: int, flops: int, dtype_name: str):
@@ -425,6 +455,60 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card):
     return errors, times
 
 
+def att_inputs(torch, B, T, hid, L, device, gen):
+    """The attention-decoder kernel's nine inputs, float32, with the weights
+    at torch's init scale and the encoder tensors as an encoder makes them."""
+    k = 1.0 / math.sqrt(hid)
+
+    def u(*shape):
+        return (torch.rand(*shape, device=device, generator=gen) * 2 - 1) * k
+
+    def n(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=device, generator=gen)
+
+    return [n(T, B, 4 * hid), u(4 * hid, 2 * hid), u(4 * hid, hid), u(hid, hid), u(hid),
+            u(hid), torch.tanh(n(B, L, hid)), torch.tanh(n(B, L, 2 * hid)),
+            n(B, 2 * hid, scale=0.1)]
+
+
+def phase_att_kernel(torch, device, hid, length, batches, timed, reps, card):
+    """The attention-decoder kernel against its plain version at the teacher-
+    forced decode length T = L - 1, every batch, float32 and bf16; kernel and
+    plain times beside the bound at ``timed``. No single PyTorch call
+    computes this loop, so it has no library time."""
+    from s2vt_tpu_torch.ops import fused_att_decode as fa
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(2468)
+    T = length - 1
+    errors, times = {}, {}
+    for B in batches:
+        for name in ("float32", "bfloat16"):
+            bf16 = name == "bfloat16"
+            args = att_inputs(torch, B, T, hid, length, device, gen)
+            got = fa.att_decode_fwd(*args, bf16)
+            sync()
+            _check(torch, "att_decode_fwd", B, name, hid, T, (got,),
+                   (fa.att_decode_fwd_reference(*args, bf16),), errors)
+            if B not in timed:
+                continue
+            k_ms = cuda_ms(torch, lambda: fa.att_decode_fwd(*args, bf16), reps)
+            p_ms = cuda_ms(torch, lambda: fa.att_decode_fwd_reference(*args, bf16),
+                           max(1, reps // 5), warmup=1)
+            bound, bound_by, nbytes, flops = att_decode_bound_ms(B, T, hid, length, name)
+            times[("att_decode_fwd", B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                                      bound_ms=bound, bound_by=bound_by)
+            print(f"time att_decode_fwd B={B} T={T} L={length} {name}: kernel_ms={k_ms:.4f} "
+                  f"({k_ms / T * 1e3:.2f} us per step) plain_ms={p_ms:.4f} library_ms=none "
+                  f"(no single PyTorch call computes the loop) bound_ms={bound:.4f} ({bound_by}; "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) bound_share={bound / k_ms:.4f} "
+                  f"[{card}]", flush=True)
+    worst = {name: max(e for (_, _, n, _), e in errors.items() if n == name)
+             for name in ("float32", "bfloat16")}
+    print(f"kernel att_decode_fwd largest error over B={list(batches)}: "
+          + ", ".join(f"{n} {e:.3e} (bound {ATOL[n]:.0e})" for n, e in worst.items()), flush=True)
+    return errors, times
+
+
 def profile_call(torch, fn, wall_ms, label, card) -> dict:
     """One call of ``fn`` under torch.profiler: device busy time (sum of the
     kernels' own device time), each fused kernel's share of it, and the top
@@ -633,6 +717,48 @@ def _grads(model, batch):
     return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
+def compare_grads(model, dev_batch, label, card) -> None:
+    """The loss and every gradient of one batch on the kernel route against
+    the plain route (every kernel wrapper on its plain version), f32: loss
+    within LOSS_TOL, each gradient within GRAD_TOL + GRAD_TOL*|g|."""
+    k_loss, k_grads = _grads(model, dev_batch)
+    with plain_kernels():
+        p_loss, p_grads = _grads(model, dev_batch)
+    worst, worst_key = 0.0, None
+    for key, pg in p_grads.items():
+        excess = ((k_grads[key] - pg).abs() - GRAD_TOL * (1 + pg.abs())).max().item()
+        if worst_key is None or excess > worst:
+            worst, worst_key = excess, key
+    max_err = max((k_grads[k] - p_grads[k]).abs().max().item() for k in p_grads)
+    print(f"{label} kernel route vs plain route (B={MAIN_BATCH} f32): loss {k_loss:.6f} vs "
+          f"{p_loss:.6f}; max |dgrad| {max_err:.3e} over {len(p_grads)} parameters "
+          f"(bound {GRAD_TOL:g} + {GRAD_TOL:g}*|g|; closest to it: {worst_key}) [{card}]",
+          flush=True)
+    if abs(k_loss - p_loss) > LOSS_TOL or worst > 0:
+        raise SystemExit(f"kernel route disagrees with the plain route: loss {k_loss} vs "
+                         f"{p_loss}, gradient {worst_key} over its bound by {worst}")
+
+
+def train_corpus(root, seed, feat, length, n_videos):
+    """Few distinct words with long captions, so that after a few steps the
+    most likely token is a word, not <eos>, and captions are not empty."""
+    from s2vt_tpu_torch.data.dataset import make_synthetic_corpus
+    return make_synthetic_corpus(root, n_videos=n_videos, vocab_extra=8, max_caption_words=24,
+                                 feat_len=length, feat_dim=feat, seed=seed)
+
+
+def train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs, extra):
+    """cli.train's flags for a float32 run at B = MAIN_BATCH with use_pallas."""
+    return dev_flag + [
+        "--caption_file", meta["captions_file"], "--feats_path", meta["feat_path"],
+        "--gts_file", meta["gts_file"], "--train_length", str(length),
+        "--dim_hidden", str(hid), "--dim_embed", str(hid), "--feat_dim", str(feat),
+        "--vocab_pad_multiple", str(vocab), "--batch_size", str(MAIN_BATCH),
+        "--use_pallas", "true", "--compute_dtype", "float32", "--EPOCHS", str(epochs),
+        "--lr", "1e-3", "--seed", str(seed), "--save_path", f"{root}/ckpt",
+        "--log_dir", f"{root}/runs", *extra]
+
+
 def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, batches, reps,
                 card, num_layers=1, dtypes=("float32", "bfloat16")):
     """The main path: s2vt_tpu_torch.cli.train's main -> Trainer.fit, with the
@@ -642,27 +768,15 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
     way; more layers run the per-layer sequence kernels, once per layer of
     each RNN each way. Returns the launches of the main-path run."""
     from s2vt_tpu_torch.cli import train as train_cli
-    from s2vt_tpu_torch.data.dataset import make_synthetic_corpus
     from s2vt_tpu_torch.evaluation.decode import greedy_eval
     from s2vt_tpu_torch.training import Trainer
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     dev_flag = [] if device.type == "cuda" else ["--device", "cpu"]   # default: the card
     with tempfile.TemporaryDirectory() as root:
-        # Few distinct words with long captions, so that after a few steps
-        # the most likely token is a word, not <eos>, and captions are not empty.
-        meta = make_synthetic_corpus(root, n_videos=n_videos, vocab_extra=8,
-                                     max_caption_words=24, feat_len=length, feat_dim=feat,
-                                     seed=seed)
-        argv = dev_flag + [
-            "--caption_file", meta["captions_file"], "--feats_path", meta["feat_path"],
-            "--gts_file", meta["gts_file"], "--train_length", str(length),
-            "--dim_hidden", str(hid), "--dim_embed", str(hid), "--feat_dim", str(feat),
-            "--vocab_pad_multiple", str(vocab), "--batch_size", str(MAIN_BATCH),
-            "--use_pallas", "true", "--compute_dtype", "float32", "--EPOCHS", str(epochs),
-            "--num_layers", str(num_layers),
-            "--lr", "1e-3", "--seed", str(seed), "--save_path", f"{root}/ckpt",
-            "--log_dir", f"{root}/runs"]
+        meta = train_corpus(root, seed, feat, length, n_videos)
+        argv = train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs,
+                          ["--num_layers", str(num_layers)])
         reset_launches()
         t0 = time.perf_counter()
         trainer = train_cli.main(argv)
@@ -704,22 +818,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         # Kernel route against plain route, full width, one batch, f32.
         batch = next(trainer.train_ds.batches(MAIN_BATCH, epoch=0))
         dev_batch = trainer._put(batch, "train")
-        k_loss, k_grads = _grads(trainer.model, dev_batch)
-        with plain_kernels():
-            p_loss, p_grads = _grads(trainer.model, dev_batch)
-        worst, worst_key = 0.0, None
-        for key, pg in p_grads.items():
-            excess = ((k_grads[key] - pg).abs() - GRAD_TOL * (1 + pg.abs())).max().item()
-            if worst_key is None or excess > worst:
-                worst, worst_key = excess, key
-        max_err = max((k_grads[k] - p_grads[k]).abs().max().item() for k in p_grads)
-        print(f"train kernel route vs plain route (B={MAIN_BATCH} f32): loss {k_loss:.6f} vs "
-              f"{p_loss:.6f}; max |dgrad| {max_err:.3e} over {len(p_grads)} parameters "
-              f"(bound {GRAD_TOL:g} + {GRAD_TOL:g}*|g|; closest to it: {worst_key}) [{card}]",
-              flush=True)
-        if abs(k_loss - p_loss) > LOSS_TOL or worst > 0:
-            raise SystemExit(f"kernel route disagrees with the plain route: loss {k_loss} vs "
-                             f"{p_loss}, gradient {worst_key} over its bound by {worst}")
+        compare_grads(trainer.model, dev_batch, "train", card)
 
         # Train-step times: forward, loss, backward, AdamW.
         gen = torch.Generator().manual_seed(seed + 2)
@@ -740,6 +839,148 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
     return launches
 
 
+def _no_grad_call(torch, fn):
+    def run():
+        with torch.no_grad():
+            return fn()
+    return run
+
+
+def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, timed, reps,
+              card):
+    """The attention baseline's main path: cli.train --model att_baseline ->
+    Trainer.fit with the launch counts read around it (the attention-decoder
+    kernel once per validation step; the sequence kernels twice per train and
+    validation step forward, twice per train step backward: the two encoder
+    directions); greedy_eval and beam_eval of its final checkpoint against
+    the plain route; the no-gradient teacher-forced logits on the kernel
+    route against the per-step route, and a train step's loss and gradients
+    against the plain route, on one batch; then times. Returns the launches
+    of the training run."""
+    from s2vt_tpu_torch.cli import train as train_cli
+    from s2vt_tpu_torch.evaluation.decode import beam_eval, greedy_eval
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    dev_flag = [] if device.type == "cuda" else ["--device", "cpu"]   # default: the card
+    dev_arg = None if device.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory() as root:
+        meta = train_corpus(root, seed, feat, length, n_videos)
+        argv = train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs,
+                          ["--model", "att_baseline"])
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        hist = trainer.history
+        n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
+        train_steps = epochs * -(-n_train // MAIN_BATCH)
+        valid_steps = epochs * -(-n_valid // MAIN_BATCH)
+        print(f"att cli.train --model att_baseline -> Trainer.fit: V={trainer.vocab_size} "
+              f"H={hid} F={feat} L={length} B={MAIN_BATCH} f32, {epochs} epochs of {n_train} "
+              f"clips ({train_steps} train steps, {valid_steps} valid steps) in {wall:.3f} s; "
+              f"train_loss={hist['train_loss']} valid_loss={hist['valid_loss']} "
+              f"launches={launches} [{card}]", flush=True)
+        want = {"fused_s2vt_fwd": 0, "fused_s2vt_bwd": 0,
+                "lstm_seq_fwd": 2 * (train_steps + valid_steps), "lstm_seq_bwd": 2 * train_steps,
+                "att_decode_fwd": valid_steps}
+        if launches != want:
+            raise SystemExit(f"the attention training path launched {launches}, not {want}")
+        losses = hist["train_loss"] + hist["valid_loss"]
+        if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"training losses missing or not finite: {hist}")
+        if not hist["train_loss"][-1] < hist["train_loss"][0]:
+            raise SystemExit(f"the train loss did not fall: {hist['train_loss']}")
+
+        # Its final checkpoint through both decode entry points.
+        final = os.path.join(trainer.opt.save_path, trainer.opt.start_time + "final")
+        n_test = len(trainer.train_ds.splits["test"])
+        for name, entry, kw in (("greedy_eval", greedy_eval, {}),
+                                ("beam_eval", beam_eval, dict(beam_width=BEAM_WIDTH,
+                                                              max_beam_depth=BEAM_DEPTH))):
+            reset_launches()
+            t0 = time.perf_counter()
+            preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
+            sync()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            with plain_kernels():
+                plain_preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
+            n_req = -(-len(preds) // MAIN_BATCH)
+            same = sum(preds[k] == plain_preds.get(k) for k in preds) / max(1, len(preds))
+            empty = sum(not c for c in preds.values())
+            print(f"att final checkpoint -> {name}: {len(preds)} of {n_test} test clips in "
+                  f"{n_req} requests of B={MAIN_BATCH}, {wall:.3f} s wall, launches={counts}, "
+                  f"sentences equal to the plain route: {same:.4f}, empty: {empty}, e.g. "
+                  f"{next(iter(preds.items()), None)} [{card}]", flush=True)
+            if counts["lstm_seq_fwd"] != 2 * n_req or counts["att_decode_fwd"] != 0:
+                raise SystemExit(f"{name} launched {counts} for {n_req} requests (2 lstm_seq_fwd "
+                                 "per request: the encoder's directions)")
+            if (len(preds) != n_test or not all(isinstance(c, str) for c in preds.values())
+                    or empty == len(preds)):
+                raise SystemExit(f"{name} decoded to missing or only empty captions: {preds}")
+            if same < ROW_MATCH_MIN_F32:
+                raise SystemExit(f"{name} sentences differ from the plain route: {same:.4f}")
+
+        # Route against route on one batch, full width, f32.
+        model = trainer.model
+        dev_batch = trainer._put(next(trainer.train_ds.batches(MAIN_BATCH, epoch=0)), "train")
+        feats, labels = dev_batch[0], dev_batch[1]
+        tf = _no_grad_call(torch, lambda: model(feats, labels[:, :-1], deterministic=True))
+        before = read_launches()["att_decode_fwd"]
+        k_logits = tf()
+        sync()
+        launched = read_launches()["att_decode_fwd"] - before
+        model.use_pallas = False            # the decoder's per-step route; encoder unchanged
+        p_logits = tf()
+        model.use_pallas = True
+        err = (k_logits - p_logits).abs().max().item()
+        print(f"att no-grad teacher_forced, kernel route vs per-step route (B={MAIN_BATCH} f32): "
+              f"max |dlogit| {err:.3e} (bound {ATOL['float32']:.0e}), kernel launches {launched} "
+              f"[{card}]", flush=True)
+        if launched != 1 or not err <= ATOL["float32"]:
+            raise SystemExit(f"no-grad teacher_forced: {launched} launches, logits off by {err}")
+        compare_grads(model, dev_batch, "att train step", card)
+
+        # Times: no-grad teacher-forced on both routes, a train step, greedy, beam.
+        gen = torch.Generator().manual_seed(seed + 4)
+        real_vocab = trainer.train_ds.vocab_size
+        for B in timed:
+            feats_b, labels_b = _random_batch(torch, B, length, feat, real_vocab, device, gen)[:2]
+            for route in ("kernel", "per_step"):
+                model.use_pallas = route == "kernel"
+                fn = _no_grad_call(torch, lambda: model(feats_b, labels_b[:, :-1],
+                                                        deterministic=True))
+                fn()
+                med = median_s(fn, reps, sync)
+                print(f"att teacher_forced no-grad B={B} {route} route: {med * 1e3:.3f} ms "
+                      f"(median of {reps}), {B / med:.1f} clips/s [{card}]", flush=True)
+                if device.type == "cuda":
+                    profile_call(torch, fn, med * 1e3, f"att teacher_forced B={B} {route}", card)
+            model.use_pallas = True
+        args = _random_batch(torch, MAIN_BATCH, length, feat, real_vocab, device, gen)
+        for _ in range(2):
+            trainer.train_step(*args)
+        med = median_s(lambda: trainer.train_step(*args).item(), reps, sync)
+        print(f"att train step V={trainer.vocab_size} B={MAIN_BATCH} float32: {med * 1e3:.3f} ms "
+              f"(median of {reps}), {MAIN_BATCH / med:.1f} clips/s [{card}]", flush=True)
+        if device.type == "cuda":
+            profile_call(torch, lambda: trainer.train_step(*args), med * 1e3,
+                         f"att train step B={MAIN_BATCH} float32", card)
+        feats_b = args[0]
+        for name, fn in (("greedy", lambda: model.greedy(feats_b)),
+                         ("beam", lambda: model.beam(feats_b, BEAM_WIDTH, BEAM_DEPTH))):
+            fn()
+            med = median_s(fn, reps, sync)
+            print(f"att AttBaseline.{name} V={trainer.vocab_size} B={MAIN_BATCH} float32: "
+                  f"{med * 1e3:.3f} ms per request (median of {reps}), "
+                  f"{MAIN_BATCH / med:.1f} clips/s [{card}]", flush=True)
+            if device.type == "cuda":
+                profile_call(torch, fn, med * 1e3, f"att AttBaseline.{name} B={MAIN_BATCH}", card)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -756,7 +997,7 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
-    from s2vt_tpu_torch.ops import _build, fused_rnn, fused_s2vt
+    from s2vt_tpu_torch.ops import _build, fused_att_decode, fused_rnn, fused_s2vt
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
     print(f"built {', '.join(_build.library_path(k).name for k in KERNELS)} from "
@@ -770,6 +1011,9 @@ def main() -> int:
         raise SystemExit("fused_shapes_ok refuses the MSVD width on this card")
     if not fused_rnn.lstm_seq_shapes_ok(H, device):
         raise SystemExit("lstm_seq_shapes_ok refuses the MSVD width on this card")
+    if not all(fused_att_decode.att_decode_shapes_ok(b, H, LENGTH, device)
+               for b in KERNEL_BATCHES):
+        raise SystemExit("att_decode_shapes_ok refuses the MSVD width on this card")
 
     # 2. kernels against their plain versions
     errors, times = phase_kernels(torch, device, H, LENGTH, KERNEL_BATCHES, TIMED_BATCHES,
@@ -778,6 +1022,10 @@ def main() -> int:
                                               KERNEL_BATCHES, TIMED_BATCHES, reps=20, card=card)
     errors.update(seq_errors)
     times.update(seq_times)
+    att_errors, att_times = phase_att_kernel(torch, device, H, LENGTH, KERNEL_BATCHES,
+                                             TIMED_BATCHES, reps=20, card=card)
+    errors.update(att_errors)
+    times.update(att_times)
 
     with tempfile.TemporaryDirectory() as root:
         ckpt = serving_checkpoint(torch, root, args.seed, H, FEAT, LENGTH, SERVE_CLIPS)
@@ -795,13 +1043,17 @@ def main() -> int:
     launches2 = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
                             TRAIN_EPOCHS, batches=(MAIN_BATCH,), reps=5, card=card,
                             num_layers=2, dtypes=("float32",))
+    # 7. the attention baseline: kernel #7's main path (its validation pass)
+    att_launches = phase_att(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
+                             TRAIN_EPOCHS, timed=TIMED_BATCHES, reps=5, card=card)
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
-    # at the T of that path.
+    # at the T of that path. The attention-decoder kernel has no library time.
     main_path = {"fused_s2vt_fwd": (launches, 2 * LENGTH - 1),
                  "fused_s2vt_bwd": (launches, 2 * LENGTH - 1),
                  "lstm_seq_fwd": ({"lstm_seq_fwd": beam_launches}, LENGTH),
-                 "lstm_seq_bwd": (launches2, 2 * LENGTH - 1)}
+                 "lstm_seq_bwd": (launches2, 2 * LENGTH - 1),
+                 "att_decode_fwd": (att_launches, LENGTH - 1)}
     rows = []
     for name in KERNELS:
         counts, T = main_path[name]

@@ -19,9 +19,8 @@ import torch
 
 from s2vt_tpu_torch.config import Opt
 from s2vt_tpu_torch.data.dataset import VideoDataset
-from s2vt_tpu_torch.models.s2vt import S2VT
 from s2vt_tpu_torch.training.checkpoint import load_checkpoint, load_config
-from s2vt_tpu_torch.training.loop import build_model, pad_to_multiple
+from s2vt_tpu_torch.training.loop import Model, build_model, pad_to_multiple
 from s2vt_tpu_torch.utils.device import resolve_device
 from s2vt_tpu_torch.utils.weights import params_from_jax
 
@@ -44,10 +43,10 @@ def ids_to_sentence(ids, ix2word: Dict[int, str], eos_ix: int,
 
 class CaptionDecoder:
     """Batch decoding of a ``VideoDataset`` split with a model that holds its
-    weights: greedy, or beam search with the given width, depth and score
-    mode."""
+    weights (S2VT or the attention baseline): greedy, or beam search with the
+    given width, depth and score mode."""
 
-    def __init__(self, model: S2VT, dataset: VideoDataset, device=None, beam_width: int = 3,
+    def __init__(self, model: Model, dataset: VideoDataset, device=None, beam_width: int = 3,
                  max_beam_depth: int = 30, beam_score_mode: str = "cumulative"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -72,7 +71,9 @@ class CaptionDecoder:
         return preds
 
     def greedy(self, batch_size: int = 10) -> Dict[str, str]:
-        """{video_id: caption} over the split (eval.py:30-60 semantics)."""
+        """{video_id: caption} over the split (eval.py:30-60 semantics). S2VT
+        rows are L-1 tokens wide, attention-baseline rows L; both are cut at
+        the first <eos>."""
         return self._run(batch_size, self.model.greedy)
 
     def beam(self, batch_size: int = 10) -> Dict[str, str]:
@@ -86,7 +87,7 @@ class CaptionDecoder:
 
 
 def model_from_checkpoint(checkpoint_path: str, real_vocab: int,
-                          device=None) -> Tuple[Opt, S2VT]:
+                          device=None) -> Tuple[Opt, Model]:
     """Rebuild (opt, model) from a checkpoint directory, weights loaded and
     the model on ``device``."""
     dev = resolve_device(device)

@@ -57,38 +57,45 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 
 
 class TorchLinear(nn.Module):
-    """y = x @ W^T + b with torch layout and init, ``compute_dtype`` matmul."""
+    """y = x @ W^T (+ b) with torch layout and init, ``compute_dtype`` matmul.
+    Without ``use_bias`` there is no ``bias`` entry in the state_dict, as in
+    the JAX tree."""
 
-    def __init__(self, out_features: int, in_features: int,
+    def __init__(self, out_features: int, in_features: int, use_bias: bool = True,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if use_bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         bound = 1.0 / math.sqrt(self.weight.shape[1])
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
-            self.bias.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_linear(x, self.weight, self.bias, self.compute_dtype)
 
 
 class TorchEmbedding(nn.Module):
-    """Lookup table with torch's N(0, 1) init. (``padding_idx``, which only
-    the attention baseline uses, comes with that model.)"""
+    """Lookup table with torch's N(0, 1) init. With ``padding_idx`` that row
+    is zero at init and gets no gradient (``nn.Embedding``'s padding_idx; the
+    attention baseline uses 0)."""
 
-    def __init__(self, num_embeddings: int, features: int):
+    def __init__(self, num_embeddings: int, features: int, padding_idx: Optional[int] = None):
         super().__init__()
+        self.padding_idx = padding_idx
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
             self.weight.normal_(generator=generator)
+            if self.padding_idx is not None:
+                self.weight[self.padding_idx] = 0.0
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids]
+        return nn.functional.embedding(ids, self.weight, padding_idx=self.padding_idx)

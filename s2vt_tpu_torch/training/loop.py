@@ -21,13 +21,14 @@ from __future__ import annotations
 import os
 import signal
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from s2vt_tpu_torch.config import Opt, save_opt
 from s2vt_tpu_torch.data.dataset import Batch, VideoDataset
+from s2vt_tpu_torch.models.attention import AttBaseline
 from s2vt_tpu_torch.models.s2vt import S2VT
 from s2vt_tpu_torch.ops.losses import _token_nll
 from s2vt_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau
@@ -56,8 +57,11 @@ def pad_to_multiple(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
-def build_model(opt: Opt, vocab_size: int, valid_vocab: Optional[int] = None) -> S2VT:
-    """Model factory dispatching on opt.model.
+Model = Union[S2VT, AttBaseline]
+
+
+def build_model(opt: Opt, vocab_size: int, valid_vocab: Optional[int] = None) -> Model:
+    """Model factory dispatching on opt.model ('s2vt' | 'att_baseline').
 
     ``vocab_size`` may be padded up (Opt.vocab_pad_multiple); pass the real
     corpus vocab as ``valid_vocab`` so decode masks the padding rows."""
@@ -72,16 +76,18 @@ def build_model(opt: Opt, vocab_size: int, valid_vocab: Optional[int] = None) ->
                     compute_dtype=cdt, use_pallas=opt.use_pallas,
                     valid_vocab=valid_vocab)
     if opt.model == "att_baseline":
-        raise NotImplementedError(
-            "the attention baseline is not ported yet (ROADMAP.md queue 1, item 4: "
-            "attention baseline)")
+        return AttBaseline(vocab_size=vocab_size, dim_feat=opt.feat_dim,
+                           length=opt.train_length, dim_hid=opt.dim_hidden,
+                           dim_embed=opt.dim_embed, feat_dropout=opt.feat_dropout,
+                           out_dropout=opt.out_dropout, sos_ix=opt.sos_ix,
+                           eos_ix=opt.eos_ix, compute_dtype=cdt,
+                           use_pallas=opt.use_pallas, valid_vocab=valid_vocab)
     raise ValueError(f"unknown model {opt.model!r}")
 
 
 def _refuse_unported(opt: Opt) -> None:
     """Options of the JAX Trainer that the port does not have yet raise here,
-    naming their ROADMAP.md item, instead of being skipped (the attention
-    baseline raises in ``build_model``)."""
+    naming their ROADMAP.md item, instead of being skipped."""
     unported = [
         (opt.metric_eval_freq > 0, "metric_eval_freq > 0 (greedy metrics during training)",
          "queue 1, item 3: metrics and scorer"),
@@ -103,7 +109,7 @@ def _dropout_seed(seed: int, epoch: int, step: int) -> int:
 class Trainer:
     """End-to-end training loop (the train() analog, train.py:56-179)."""
 
-    def __init__(self, opt: Opt, model: Optional[S2VT] = None,
+    def __init__(self, opt: Opt, model: Optional[Model] = None,
                  train_ds: Optional[VideoDataset] = None,
                  valid_ds: Optional[VideoDataset] = None, device=None):
         _refuse_unported(opt)
@@ -217,6 +223,8 @@ class Trainer:
 
     @torch.no_grad()
     def valid_epoch(self, epoch: int) -> float:
+        """Mean validation loss, teacher-forced with no gradient recorded (the
+        attention baseline's decoder loop then runs its kernel)."""
         losses, weights = [], []
         batches = self.valid_ds.batches(self.opt.batch_size, shuffle=False, epoch=epoch,
                                         include_feats=not self.use_feature_bank)

@@ -87,7 +87,8 @@ def test_find_nvcc_without_toolkit_raises(tmp_path, monkeypatch):
 PORT_SOURCES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py::_fwd_kernel",
                 "fused_s2vt_bwd": "s2vt_tpu/ops/pallas_s2vt.py::_bwd_kernel",
                 "lstm_seq_fwd": "s2vt_tpu/ops/pallas_rnn.py::_fwd_kernel",
-                "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py::_bwd_kernel"}
+                "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py::_bwd_kernel",
+                "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py::_kernel"}
 
 
 def test_build_all_compiles_every_port_source(tmp_path, monkeypatch):

@@ -20,7 +20,7 @@ from s2vt_tpu.utils.torch_import import params_from_torch_state_dict
 from s2vt_tpu_torch.config import Opt
 from s2vt_tpu_torch.data.dataset import VideoDataset, make_synthetic_corpus
 from s2vt_tpu_torch.evaluation import decode
-from s2vt_tpu_torch.models import S2VT
+from s2vt_tpu_torch.models import AttBaseline, S2VT
 from s2vt_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from s2vt_tpu_torch.utils import weights
 
@@ -170,7 +170,10 @@ def test_build_model_dispatch():
     m = build_model(Opt(compute_dtype="bfloat16", use_pallas=True, dim_hidden=8, dim_embed=8,
                         feat_dim=4, train_length=3), 9)
     assert m.compute_dtype == torch.bfloat16 and m.use_pallas and m.valid_vocab is None
-    with pytest.raises(NotImplementedError, match="attention baseline"):
-        build_model(Opt(model="att_baseline"), 9)
+    att = build_model(Opt(model="att_baseline", use_pallas=True, dim_hidden=8, dim_embed=6,
+                          feat_dim=4, train_length=3), 9, valid_vocab=7)
+    assert isinstance(att, AttBaseline) and att.use_pallas and att.att_mode == "softmax"
+    assert (att.dim_hid, att.dim_embed, att.dim_feat, att.length, att.valid_vocab) == (
+        8, 6, 4, 3, 7)
     with pytest.raises(ValueError):
         build_model(Opt(model="nope"), 9)
