@@ -9,9 +9,10 @@ Phases; a failure in any of them exits non-zero before the result line:
               source, all started together.
   2. kernels  each kernel against its plain PyTorch version at the MSVD width
               (H = 512) for B in {1, 16, 96, 200} in float32 and bf16: the
-              fused kernels at T = 2L - 1 = 159, the per-layer sequence
-              kernels at T = L = 80 (beam encode) and T = 159 (training);
-              kernel, plain and library (cuDNN nn.LSTM) times beside the bound.
+              fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
+              sequence kernels at T = L = 80 (beam encode) and T = 159
+              (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
+              times beside the bound.
   3. slice    greedy_eval -> model_from_checkpoint on a corpus and a
               checkpoint made from --seed at H = E = 512, F = 4096, L = 80
               (the serving path; the kernel launch counts are read around it),
@@ -19,16 +20,17 @@ Phases; a failure in any of them exits non-zero before the result line:
               against the same model with the plain kernels.
   4. train    s2vt_tpu_torch.cli.train -> Trainer.fit on a corpus made from
               --seed at H = E = 512, F = 4096, L = 80, V = 10240, B = 16 (the
-              main path; launch counts read around it), its final checkpoint
-              through greedy_eval, the kernel route's gradients against the
-              plain route's, and train-step times at B in {16, 96}, float32
-              and bf16.
+              main path; launch counts read around it), greedy_eval and
+              beam_eval of its final checkpoint against the plain route, the
+              kernel route's gradients against the plain route's, train-step
+              times at B in {16, 96}, float32 and bf16, and greedy and beam
+              times.
   5. beam     beam_eval -> model_from_checkpoint on the corpus and checkpoint
               of phase 3 at B = 16, width 3, depth 30 (the beam slice's main
               path; launch counts read around it) against the plain route,
               then S2VT.beam at V = 10240, B in {16, 96}, float32 and bf16.
   6. train2   phase 4 with --num_layers 2: each layer of both RNNs runs the
-              per-layer sequence kernels; one timed train step at B = 16.
+              per-layer sequence kernels; train-step times at B = 16 only.
   7. att      the attention baseline: cli.train --model att_baseline on the
               corpus of phase 4 (launch counts read around it: the
               attention-decoder kernel runs the no-gradient validation pass,
@@ -36,6 +38,16 @@ Phases; a failure in any of them exits non-zero before the result line:
               beam_eval of its final checkpoint against the plain route, the
               kernel routes against the plain routes on one batch, and
               teacher-forced, train-step, greedy and beam times.
+  8. gru      GRU S2VT: cli.train --rnn_type gru on the corpus of phase 4
+              (launch counts read around it: both RNNs run the GRU sequence
+              kernels, forward in every train and validation step, backward
+              in every train step), greedy_eval and beam_eval of its final
+              checkpoint against the plain route, the kernel route's
+              gradients against the plain route's, and train-step, greedy and
+              beam times.
+
+Every launch count read is held exactly to what the path should launch
+(s2vt_launches): each kernel where its slice says, and no other kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -74,19 +86,27 @@ TRAIN_EPOCHS = 2
 SERVE_CLIPS = 96       # serving corpus: 24 test clips, 2 requests of 16
 BEAM_WIDTH, BEAM_DEPTH = 3, 30   # Opt.beam_width, Opt.max_beam_depth
 KERNELS = ("fused_s2vt_fwd", "fused_s2vt_bwd", "lstm_seq_fwd", "lstm_seq_bwd",
-           "att_decode_fwd")
+           "att_decode_fwd", "gru_seq_fwd", "gru_seq_bwd")
 MODULES = {"fused_s2vt_fwd": "fused_s2vt", "fused_s2vt_bwd": "fused_s2vt",
            "lstm_seq_fwd": "fused_rnn", "lstm_seq_bwd": "fused_rnn",
-           "att_decode_fwd": "fused_att_decode"}
+           "att_decode_fwd": "fused_att_decode", "gru_seq_fwd": "fused_gru",
+           "gru_seq_bwd": "fused_gru"}
 # The device symbol of each kernel, as torch.profiler names it.
 SYMBOLS = {"fused_s2vt_fwd": "s2vt_fused_fwd_kernel", "fused_s2vt_bwd": "s2vt_fused_bwd_kernel",
            "lstm_seq_fwd": "lstm_seq_fwd_kernel", "lstm_seq_bwd": "lstm_seq_bwd_kernel",
-           "att_decode_fwd": "att_decode_fwd_kernel"}
+           "att_decode_fwd": "att_decode_fwd_kernel", "gru_seq_fwd": "gru_seq_fwd_kernel",
+           "gru_seq_bwd": "gru_seq_bwd_kernel"}
 REPLACES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py:118",
             "fused_s2vt_bwd": "s2vt_tpu/ops/pallas_s2vt.py:238",
             "lstm_seq_fwd": "s2vt_tpu/ops/pallas_rnn.py:80",
             "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py:175",
-            "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py:114"}
+            "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py:114",
+            "gru_seq_fwd": "s2vt_tpu/ops/pallas_gru.py:43",
+            "gru_seq_bwd": "s2vt_tpu/ops/pallas_gru.py:124"}
+# The per-layer sequence ops: forward and backward kernel, gate blocks, cuDNN
+# yardstick.
+SEQ_CELLS = {"lstm": ("lstm_seq_fwd", "lstm_seq_bwd", 4, "LSTM"),
+             "gru": ("gru_seq_fwd", "gru_seq_bwd", 3, "GRU")}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -162,6 +182,28 @@ def seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
     return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
 
 
+def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
+    """Least time for the GRU forward: x_proj [T, B, 3H], W_hh, b_hh and h0
+    read once; the h, gate and gh_n sequences and hT written once, all
+    float32; against the 2*T*B*3H*H operations of the recurrent product at
+    the peak rate of its operand type (bf16 operands in bf16 mode)."""
+    G = 3 * hid
+    nbytes = 4 * (T * B * G + G * hid + G + B * hid             # x_proj, W_hh, b_hh, h0
+                  + T * B * G + 2 * T * B * hid + B * hid)      # gates; h, gh_n seqs; hT
+    return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
+
+
+def gru_seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
+    """Least time for the GRU backward: gates [T, B, 3H], gh_n, h_prev and
+    dout [T, B, H], W_hh and dhT read once; dxp [T, B, 3H], dghn [T, B, H] and
+    dh0 written once, all float32; against the 2*T*B*3H*H operations of the
+    recurrent product at the peak rate of its operand type."""
+    G = 3 * hid
+    nbytes = 4 * (T * B * G + 3 * T * B * hid + G * hid + B * hid    # inputs
+                  + T * B * G + T * B * hid + B * hid)               # dxp, dghn, dh0
+    return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
+
+
 def att_decode_bound_ms(B: int, T: int, hid: int, L: int, dtype_name: str):
     """Least time for the attention-decoder loop: the weights (W_ctx, W_hh,
     W_att, b_att, w_apply), enc_wh, enc_out, xp and ctx0 read once and the h
@@ -196,34 +238,35 @@ def fused_inputs(torch, B, T, hid, dtype, device, gen):
     return [x1, x2, *ws]
 
 
-def cudnn_lstm(torch, in_size, hid, dtype, device):
-    """One nn.LSTM layer made on the card in its dtype, with its weights in
-    one buffer as cuDNN wants. flatten_parameters() leaves bf16 weights apart
-    (bf16 is not in torch.backends.cudnn.CUDNN_TENSOR_DTYPES) although cuDNN
-    runs bf16 LSTMs and then warns that the weights are not contiguous; bf16
-    is admitted for the call. A yardstick only: the port never calls it."""
-    lstm = torch.nn.LSTM(in_size, hid, batch_first=True, device=device, dtype=dtype)
+def cudnn_rnn(torch, in_size, hid, dtype, device, cell="LSTM"):
+    """One nn.LSTM (or nn.GRU) layer made on the card in its dtype, with its
+    weights in one buffer as cuDNN wants. flatten_parameters() leaves bf16
+    weights apart (bf16 is not in torch.backends.cudnn.CUDNN_TENSOR_DTYPES)
+    although cuDNN runs bf16 RNNs and then warns that the weights are not
+    contiguous; bf16 is admitted for the call. A yardstick only: the port
+    never calls it."""
+    rnn = getattr(torch.nn, cell)(in_size, hid, batch_first=True, device=device, dtype=dtype)
     accepted = torch.backends.cudnn.CUDNN_TENSOR_DTYPES
     added = dtype not in accepted
     accepted.add(dtype)
     try:
-        lstm.flatten_parameters()
+        rnn.flatten_parameters()
     finally:
         if added:
             accepted.discard(dtype)
-    if len({w.untyped_storage().data_ptr() for w in lstm._flat_weights}) != 1:
-        raise SystemExit(f"cuDNN yardstick: {dtype} LSTM weights are not one buffer")
-    return lstm
+    if len({w.untyped_storage().data_ptr() for w in rnn._flat_weights}) != 1:
+        raise SystemExit(f"cuDNN yardstick: {dtype} {cell} weights are not one buffer")
+    return rnn
 
 
 def cudnn_lstms(torch, hid, emb, dtype, device):
     """The vid and word nn.LSTM at the fused kernels' shapes."""
-    return (cudnn_lstm(torch, hid, hid, dtype, device),
-            cudnn_lstm(torch, emb + hid, hid, dtype, device))
+    return (cudnn_rnn(torch, hid, hid, dtype, device),
+            cudnn_rnn(torch, emb + hid, hid, dtype, device))
 
 
 def cuda_ms_quiet(torch, fn, reps: int, label: str, warmup: int = 2) -> float:
-    """``cuda_ms``, failing if the call raises any warning (a cuDNN LSTM whose
+    """``cuda_ms``, failing if the call raises any warning (a cuDNN RNN whose
     weights are not one buffer warns, and its time would be too high)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -266,19 +309,19 @@ def library_lstm_bwd_ms(torch, B, T, hid, emb, dtype, device, reps) -> float:
     return both - cuda_ms_quiet(torch, fwd, reps, label)
 
 
-def library_seq_ms(torch, B, T, hid, dtype, device, reps):
-    """One cuDNN nn.LSTM layer at the sequence kernels' shapes (input width
-    H): (forward ms with autograd off, forward + backward less forward ms).
-    cuDNN's forward also forms the input projection, and its backward the
-    weight and input gradients."""
-    lstm = cudnn_lstm(torch, hid, hid, dtype, device)
+def library_seq_ms(torch, B, T, hid, dtype, device, reps, cell="LSTM"):
+    """One cuDNN nn.LSTM (or nn.GRU) layer at the sequence kernels' shapes
+    (input width H): (forward ms with autograd off, forward + backward less
+    forward ms). cuDNN's forward also forms the input projection, and its
+    backward the weight and input gradients."""
+    rnn = cudnn_rnn(torch, hid, hid, dtype, device, cell)
     x = torch.randn(B, T, hid, device=device, dtype=dtype, requires_grad=True)
     dout = torch.randn(B, T, hid, device=device, dtype=dtype)
-    label = f"cuDNN LSTM layer B={B} T={T} {dtype}"
+    label = f"cuDNN {cell} layer B={B} T={T} {dtype}"
     with torch.no_grad():
-        fwd = cuda_ms_quiet(torch, lambda: lstm(x), reps, label)
-    both = cuda_ms_quiet(torch, lambda: lstm(x)[0].backward(dout), reps, label)
-    return fwd, both - cuda_ms_quiet(torch, lambda: lstm(x), reps, label)
+        fwd = cuda_ms_quiet(torch, lambda: rnn(x), reps, label)
+    both = cuda_ms_quiet(torch, lambda: rnn(x)[0].backward(dout), reps, label)
+    return fwd, both - cuda_ms_quiet(torch, lambda: rnn(x), reps, label)
 
 
 def _module(name: str):
@@ -387,65 +430,92 @@ def phase_kernels(torch, device, hid, length, batches, timed, reps, card):
     return errors, times
 
 
-def seq_inputs(torch, B, T, hid, device, gen):
-    """(x_proj_t [T, B, 4H], w_hh [4H, H], h0, c0 [B, H]), float32."""
+def seq_inputs(torch, cell, B, T, hid, device, gen):
+    """The forward's inputs, float32: LSTM (x_proj_t [T, B, 4H], w_hh
+    [4H, H], h0, c0 [B, H]); GRU (x_proj_t [T, B, 3H], w_hh [3H, H], b_hh
+    [3H], h0 [B, H])."""
     k = 1.0 / math.sqrt(hid)
-    x = torch.randn(T, B, 4 * hid, device=device, generator=gen)
-    w_hh = (torch.rand(4 * hid, hid, device=device, generator=gen) * 2 - 1) * k
+    G = SEQ_CELLS[cell][2] * hid
+    x = torch.randn(T, B, G, device=device, generator=gen)
+    w_hh = (torch.rand(G, hid, device=device, generator=gen) * 2 - 1) * k
+    if cell == "gru":
+        b_hh = (torch.rand(G, device=device, generator=gen) * 2 - 1) * k
+        return [x, w_hh, b_hh, 0.5 * torch.randn(B, hid, device=device, generator=gen)]
     h0, c0 = (0.5 * torch.randn(B, hid, device=device, generator=gen) for _ in range(2))
     return [x, w_hh, h0, c0]
 
 
-def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card):
-    """The per-layer sequence kernels against their plain versions at every
-    T, batch and mode (float32, and bf16 product operands); times at
-    ``timed``. The backward's inputs come from the forward kernel's run, so
-    its gates and c are real LSTM states."""
-    from s2vt_tpu_torch.ops import fused_rnn as fr
+def seq_bwd_inputs(torch, cell, args, got, device, gen):
+    """(the backward's inputs, h_prev [T, B, H]) from the forward kernel's
+    inputs ``args`` and outputs ``got``, so that its gates (and c or gh_n)
+    are real states; the output cotangents are random."""
+    T, B, hid = got[0].shape
+    h0 = args[3] if cell == "gru" else args[2]
+    hprev = torch.cat([h0[None], got[0][:-1]])
+    grads = [torch.randn(s, device=device, generator=gen)
+             for s in ((T, B, hid), (B, hid), (B, hid))[:2 if cell == "gru" else 3]]
+    if cell == "gru":
+        return (got[1], got[2], hprev, args[1], *grads), hprev
+    cprev = torch.cat([args[3][None], got[2][:-1]])
+    return (got[1], got[2], cprev, args[1], *grads), hprev
+
+
+def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, cell="lstm"):
+    """The per-layer LSTM (or GRU) sequence kernels against their plain
+    versions at every T, batch and mode (float32, and bf16 product operands);
+    times at ``timed``. The backward's inputs come from the forward kernel's
+    run, so its gates are real states."""
+    fwd_name, bwd_name, _, cudnn_cell = SEQ_CELLS[cell]
+    mod = _module(fwd_name)
+    fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
+    fwd_ref, bwd_ref = getattr(mod, fwd_name + "_reference"), getattr(mod, bwd_name + "_reference")
+    bounds = {fwd_name: gru_seq_fwd_bound_ms if cell == "gru" else seq_fwd_bound_ms,
+              bwd_name: gru_seq_bwd_bound_ms if cell == "gru" else seq_bwd_bound_ms}
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    gen = torch.Generator(device=device).manual_seed(4321)
+    gen = torch.Generator(device=device).manual_seed(4321 if cell == "lstm" else 8642)
     errors, times = {}, {}
     for T in seq_lens:
         for B in batches:
             for name in ("float32", "bfloat16"):
                 bf16 = name == "bfloat16"
-                args = seq_inputs(torch, B, T, hid, device, gen)
-                got = fr.lstm_seq_fwd(*args, bf16)
+                args = seq_inputs(torch, cell, B, T, hid, device, gen)
+                got = fwd(*args, bf16)
                 sync()
-                _check(torch, "lstm_seq_fwd", B, name, hid, T, got,
-                       fr.lstm_seq_fwd_reference(*args, bf16), errors, SEQ_ATOL)
-                outs, gates, cseq = got[:3]
-                cprev = torch.cat([args[3][None], cseq[:-1]])
-                bargs = (gates, cseq, cprev, args[1], *(torch.randn(
-                    s, device=device, generator=gen) for s in ((T, B, hid), (B, hid), (B, hid))))
-                dxp = fr.lstm_seq_bwd(*bargs, bf16)
+                _check(torch, fwd_name, B, name, hid, T, got, fwd_ref(*args, bf16), errors,
+                       SEQ_ATOL)
+                bargs, hprev = seq_bwd_inputs(torch, cell, args, got, device, gen)
+                dxp = bwd(*bargs, bf16)
                 sync()
-                _check(torch, "lstm_seq_bwd", B, name, hid, T, dxp,
-                       fr.lstm_seq_bwd_reference(*bargs, bf16), errors, SEQ_ATOL)
+                _check(torch, bwd_name, B, name, hid, T, dxp, bwd_ref(*bargs, bf16), errors,
+                       SEQ_ATOL)
                 if B not in timed:
                     continue
                 dtype = torch.bfloat16 if bf16 else torch.float32
-                lib_fwd, lib_bwd = library_seq_ms(torch, B, T, hid, dtype, device, reps)
-                hprev = torch.cat([args[2][None], outs[:-1]])
+                lib_fwd, lib_bwd = library_seq_ms(torch, B, T, hid, dtype, device, reps,
+                                                  cudnn_cell)
 
                 def bwd_and_dw():
-                    d = fr.lstm_seq_bwd(*bargs, bf16)[0]
-                    hprev.reshape(-1, hid).T @ d.reshape(-1, 4 * hid)
+                    """The backward kernel with the weight gradients the
+                    autograd Function forms from it (dW_hh; GRU also db_hh)."""
+                    d = bwd(*bargs, bf16)
+                    if cell == "gru":
+                        dgh = torch.cat([d[0][..., :2 * hid], d[1]], dim=-1).reshape(-1, 3 * hid)
+                        dgh.T @ hprev.reshape(-1, hid), dgh.sum(dim=0)
+                    else:
+                        hprev.reshape(-1, hid).T @ d[0].reshape(-1, 4 * hid)
 
-                for kernel, fn, ref, fargs, bound_fn, lib in (
-                        ("lstm_seq_fwd", fr.lstm_seq_fwd, fr.lstm_seq_fwd_reference, args,
-                         seq_fwd_bound_ms, lib_fwd),
-                        ("lstm_seq_bwd", fr.lstm_seq_bwd, fr.lstm_seq_bwd_reference, bargs,
-                         seq_bwd_bound_ms, lib_bwd)):
+                for kernel, fn, ref, fargs, lib in ((fwd_name, fwd, fwd_ref, args, lib_fwd),
+                                                    (bwd_name, bwd, bwd_ref, bargs, lib_bwd)):
                     k_ms = cuda_ms(torch, lambda: fn(*fargs, bf16), reps)
                     p_ms = cuda_ms(torch, lambda: ref(*fargs, bf16), max(1, reps // 5), warmup=1)
-                    bound, bound_by, nbytes, flops = bound_fn(B, T, hid, name)
+                    bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name)
                     extra = {}
-                    if kernel == "lstm_seq_bwd":
+                    if kernel == bwd_name:
                         extra["with_dw_ms"] = cuda_ms(torch, bwd_and_dw, reps)
                     times[(kernel, B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib,
                                                        bound_ms=bound, bound_by=bound_by, **extra)
                     print(f"time {kernel} B={B} T={T} {name}: kernel_ms={k_ms:.4f} "
+                          f"({k_ms / T * 1e3:.2f} us per step) "
                           + "".join(f"kernel_plus_dW_ms={v:.4f} " for v in extra.values())
                           + f"plain_ms={p_ms:.4f} library_ms={lib:.4f} "
                           f"({'cuDNN fwd+bwd less fwd' if extra else 'cuDNN fwd'}) "
@@ -573,8 +643,9 @@ def median_s(fn, reps, sync) -> float:
 
 
 def phase_slice(torch, device, ckpt, seed, hid, feat, length, vocab, batches, reps, card):
-    """The main path through greedy_eval, then S2VT.greedy kernel vs plain.
-    Returns the kernel's launches in the main-path run."""
+    """The main path through greedy_eval, launch counts read around it and
+    held to ``s2vt_launches`` exactly, then S2VT.greedy kernel vs plain.
+    Returns the launches of the main-path run."""
     from s2vt_tpu_torch.evaluation.decode import greedy_eval
     from s2vt_tpu_torch.models import S2VT
 
@@ -585,17 +656,17 @@ def phase_slice(torch, device, ckpt, seed, hid, feat, length, vocab, batches, re
     preds = greedy_eval(ckpt, batch_size=MAIN_BATCH, device=dev_arg)
     sync()
     wall = time.perf_counter() - t0
-    launches = read_launches()["fused_s2vt_fwd"]
+    launches = read_launches()
     with plain_kernels():
         plain_preds = greedy_eval(ckpt, batch_size=MAIN_BATCH, device=dev_arg)
     n_batches = -(-len(preds) // MAIN_BATCH)
     same = sum(preds[k] == plain_preds.get(k) for k in preds) / max(1, len(preds))
     print(f"slice greedy_eval: {len(preds)} clips in {n_batches} requests of B={MAIN_BATCH}, "
-          f"{wall:.3f} s wall, fused_s2vt_fwd launches={launches}, "
+          f"{wall:.3f} s wall, launches={launches}, "
           f"sentences equal to the plain route: {same:.4f} [{card}]", flush=True)
-    if launches < n_batches:
-        raise SystemExit(f"the main path launched fused_s2vt_fwd {launches} times for "
-                         f"{n_batches} requests")
+    want = expect(requests=(s2vt_launches("lstm", 1)[2], n_batches))
+    if launches != want:
+        raise SystemExit(f"greedy_eval launched {launches} for {n_batches} requests, not {want}")
     if not preds or not all(isinstance(s, str) and s for s in preds.values()):
         raise SystemExit("greedy_eval returned no or empty captions")
     if same < ROW_MATCH_MIN_F32:
@@ -657,9 +728,10 @@ def phase_beam(torch, device, ckpt, seed, hid, feat, length, vocab, batches, rep
           f"W={BEAM_WIDTH} D={BEAM_DEPTH}, {wall:.3f} s wall, launches={launches}, sentences "
           f"equal to the plain route: {same:.4f}, e.g. {next(iter(preds.items()), None)} "
           f"[{card}]", flush=True)
-    if launches["lstm_seq_fwd"] != 2 * n_batches:
-        raise SystemExit(f"the beam path launched lstm_seq_fwd {launches['lstm_seq_fwd']} times "
-                         f"for {n_batches} requests (2 per request: vid_rnn, word_rnn)")
+    want = expect(requests=(s2vt_launches("lstm", 1)[3], n_batches))
+    if launches != want:
+        raise SystemExit(f"beam_eval launched {launches} for {n_batches} requests, not {want} "
+                         "(vid_rnn and word_rnn, one sequence kernel each)")
     if not preds or not all(isinstance(s, str) and s for s in preds.values()):
         raise SystemExit(f"beam_eval returned no or empty captions: {preds}")
     if same < ROW_MATCH_MIN_F32:
@@ -759,24 +831,51 @@ def train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs, ext
         "--log_dir", f"{root}/runs", *extra]
 
 
+def s2vt_launches(rnn_type, num_layers):
+    """The kernel launches of one S2VT configuration: (per train step, per
+    validation step, per greedy_eval request, per beam_eval request). One
+    LSTM layer runs the fused kernels once per step each way, and greedy's
+    encode on the fused forward; otherwise every layer of both RNNs runs its
+    cell's sequence kernels, once each way. Beam encodes per layer, whatever
+    the depth. Kernels not named launch 0 times."""
+    seq_fwd, seq_bwd = SEQ_CELLS[rnn_type][:2]
+    per_layer = 2 * num_layers                      # vid_rnn and word_rnn
+    beam = {seq_fwd: per_layer}
+    if rnn_type == "lstm" and num_layers == 1:
+        return ({"fused_s2vt_fwd": 1, "fused_s2vt_bwd": 1}, {"fused_s2vt_fwd": 1},
+                {"fused_s2vt_fwd": 1}, beam)
+    return ({seq_fwd: per_layer, seq_bwd: per_layer}, {seq_fwd: per_layer},
+            {seq_fwd: per_layer}, beam)
+
+
+def expect(**per_unit) -> dict:
+    """Every kernel's expected launches: for each keyword's (counts per
+    unit, units), counts times units, summed; 0 for a kernel none names."""
+    want = {k: 0 for k in KERNELS}
+    for counts, units in per_unit.values():
+        for k, n in counts.items():
+            want[k] += n * units
+    return want
+
+
 def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, batches, reps,
-                card, num_layers=1, dtypes=("float32", "bfloat16")):
+                card, num_layers=1, dtypes=("float32", "bfloat16"), rnn_type="lstm"):
     """The main path: s2vt_tpu_torch.cli.train's main -> Trainer.fit, with the
-    launch counts read around it; its final checkpoint through greedy_eval;
-    the kernel route's loss and gradients against the plain route's; then
-    train-step times. One layer runs the fused kernels, once per step each
-    way; more layers run the per-layer sequence kernels, once per layer of
-    each RNN each way. Returns the launches of the main-path run."""
+    launch counts read around it and held to ``s2vt_launches`` exactly; its
+    final checkpoint through greedy_eval and beam_eval against the plain
+    route; the kernel route's loss and gradients against the plain route's;
+    then train-step and request times. Returns the launches of the main-path
+    run and of the beam_eval run."""
     from s2vt_tpu_torch.cli import train as train_cli
-    from s2vt_tpu_torch.evaluation.decode import greedy_eval
     from s2vt_tpu_torch.training import Trainer
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     dev_flag = [] if device.type == "cuda" else ["--device", "cpu"]   # default: the card
+    per_train, per_valid, per_greedy, per_beam = s2vt_launches(rnn_type, num_layers)
     with tempfile.TemporaryDirectory() as root:
         meta = train_corpus(root, seed, feat, length, n_videos)
         argv = train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs,
-                          ["--num_layers", str(num_layers)])
+                          ["--num_layers", str(num_layers), "--rnn_type", rnn_type])
         reset_launches()
         t0 = time.perf_counter()
         trainer = train_cli.main(argv)
@@ -787,20 +886,16 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
         valid_steps = epochs * -(-n_valid // MAIN_BATCH)
-        print(f"train cli.train -> Trainer.fit: V={trainer.vocab_size} H={hid} F={feat} "
-              f"L={length} layers={num_layers} B={MAIN_BATCH} f32, {epochs} epochs of "
-              f"{n_train} clips ({train_steps} train steps, {valid_steps} valid steps) in "
-              f"{wall:.3f} s; "
+        print(f"{rnn_type} cli.train -> Trainer.fit: V={trainer.vocab_size} H={hid} F={feat} "
+              f"L={length} rnn={rnn_type} layers={num_layers} B={MAIN_BATCH} f32, {epochs} "
+              f"epochs of {n_train} clips ({train_steps} train steps, {valid_steps} valid steps) "
+              f"in {wall:.3f} s; "
               f"train_loss={hist['train_loss']} valid_loss={hist['valid_loss']} "
               f"launches={launches} bank={trainer.use_feature_bank} [{card}]", flush=True)
-        fwd, bwd, per_step = (("fused_s2vt_fwd", "fused_s2vt_bwd", 1) if num_layers == 1 else
-                              ("lstm_seq_fwd", "lstm_seq_bwd", 2 * num_layers))
-        if launches[bwd] != per_step * train_steps:
-            raise SystemExit(f"the training path launched {bwd} {launches[bwd]} times for "
-                             f"{train_steps} train steps ({per_step} per step)")
-        if launches[fwd] < per_step * (train_steps + valid_steps):
-            raise SystemExit(f"the training path launched {fwd} {launches[fwd]} times for "
-                             f"{train_steps + valid_steps} steps ({per_step} per step)")
+        want = expect(train=(per_train, train_steps), valid=(per_valid, valid_steps))
+        if launches != want:
+            raise SystemExit(f"the {rnn_type} training path ({num_layers} layers) launched "
+                             f"{launches}, not {want}")
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"training losses missing or not finite: {hist}")
@@ -808,17 +903,15 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
             raise SystemExit(f"the train loss did not fall: {hist['train_loss']}")
 
         final = os.path.join(trainer.opt.save_path, trainer.opt.start_time + "final")
-        preds = greedy_eval(final, batch_size=MAIN_BATCH, device=None if dev_flag == [] else "cpu")
-        n_test = len(trainer.train_ds.splits["test"])
-        print(f"train final checkpoint -> greedy_eval: {len(preds)} of {n_test} test clips, "
-              f"e.g. {next(iter(preds.items()), None)}", flush=True)
-        if len(preds) != n_test or not all(isinstance(c, str) and c for c in preds.values()):
-            raise SystemExit(f"the final checkpoint decoded to missing or empty captions: {preds}")
+        decode_launches = decode_final(
+            torch, final, None if dev_flag == [] else "cpu",
+            len(trainer.train_ds.splits["test"]), sync, f"{rnn_type} {num_layers}-layer",
+            {"greedy_eval": per_greedy, "beam_eval": per_beam}, card, allow_empty=())
 
         # Kernel route against plain route, full width, one batch, f32.
         batch = next(trainer.train_ds.batches(MAIN_BATCH, epoch=0))
         dev_batch = trainer._put(batch, "train")
-        compare_grads(trainer.model, dev_batch, "train", card)
+        compare_grads(trainer.model, dev_batch, f"{rnn_type} train", card)
 
         # Train-step times: forward, loss, backward, AdamW.
         gen = torch.Generator().manual_seed(seed + 2)
@@ -831,12 +924,70 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
                 for _ in range(2):
                     tr.train_step(*args)
                 med = median_s(lambda: tr.train_step(*args).item(), reps, sync)
-                print(f"train step V={tr.vocab_size} B={B} {dtype}: {med * 1e3:.3f} ms "
-                      f"(median of {reps}), {B / med:.1f} clips/s [{card}]", flush=True)
+                print(f"{rnn_type} train step V={tr.vocab_size} layers={num_layers} B={B} "
+                      f"{dtype}: {med * 1e3:.3f} ms (median of {reps}), {B / med:.1f} clips/s "
+                      f"[{card}]", flush=True)
                 if device.type == "cuda":
                     profile_call(torch, lambda: tr.train_step(*args), med * 1e3,
-                                 f"train step B={B} {dtype}", card)
-    return launches
+                                 f"{rnn_type} train step B={B} {dtype}", card)
+        feats = _random_batch(torch, MAIN_BATCH, length, feat, trainer.train_ds.vocab_size,
+                              device, gen)[0]
+        time_requests(torch, device, trainer.model, feats, reps, sync,
+                      f"{rnn_type} {num_layers}-layer S2VT", card)
+    return launches, decode_launches
+
+
+def decode_final(torch, final, dev_arg, n_test, sync, label, per_request, card, allow_empty):
+    """A trained final checkpoint through greedy_eval and beam_eval (B =
+    MAIN_BATCH, W = BEAM_WIDTH, D = BEAM_DEPTH), with the launch counts read
+    around each: ``per_request[entry]`` kernel launches per request and no
+    other kernel; sentences equal to the plain route on ROW_MATCH_MIN_F32 of
+    the clips, none empty, or not all for the entry points in
+    ``allow_empty`` (a young model's best beam may end at once). Returns the
+    beam_eval run's launches."""
+    from s2vt_tpu_torch.evaluation.decode import beam_eval, greedy_eval
+    for name, entry, kw in (("greedy_eval", greedy_eval, {}),
+                            ("beam_eval", beam_eval, dict(beam_width=BEAM_WIDTH,
+                                                          max_beam_depth=BEAM_DEPTH))):
+        reset_launches()
+        t0 = time.perf_counter()
+        preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        with plain_kernels():
+            plain_preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
+        n_req = -(-len(preds) // MAIN_BATCH)
+        same = sum(preds[k] == plain_preds.get(k) for k in preds) / max(1, len(preds))
+        empty = sum(not c for c in preds.values())
+        print(f"{label} final checkpoint -> {name}: {len(preds)} of {n_test} test clips in "
+              f"{n_req} requests of B={MAIN_BATCH}, {wall:.3f} s wall, launches={counts}, "
+              f"sentences equal to the plain route: {same:.4f}, empty: {empty}, e.g. "
+              f"{next(iter(preds.items()), None)} [{card}]", flush=True)
+        want = expect(requests=(per_request[name], n_req))
+        if counts != want:
+            raise SystemExit(f"{label} {name} launched {counts} for {n_req} requests, not {want}")
+        if (len(preds) != n_test or not all(isinstance(c, str) for c in preds.values())
+                or empty == len(preds) or (empty and name not in allow_empty)):
+            raise SystemExit(f"{label} {name} decoded to missing or empty captions: {preds}")
+        if same < ROW_MATCH_MIN_F32:
+            raise SystemExit(f"{label} {name} sentences differ from the plain route: {same:.4f}")
+    return counts
+
+
+def time_requests(torch, device, model, feats, reps, sync, label, card):
+    """One greedy and one beam request (W = BEAM_WIDTH, D = BEAM_DEPTH) of
+    ``model`` on ``feats``: host time (median of ``reps``) and, on the card,
+    a profile."""
+    B = feats.shape[0]
+    for name, fn in (("greedy", lambda: model.greedy(feats)),
+                     ("beam", lambda: model.beam(feats, BEAM_WIDTH, BEAM_DEPTH))):
+        fn()
+        med = median_s(fn, reps, sync)
+        print(f"{label}.{name} V={model.vocab_size} B={B} float32: {med * 1e3:.3f} ms per "
+              f"request (median of {reps}), {B / med:.1f} clips/s [{card}]", flush=True)
+        if device.type == "cuda":
+            profile_call(torch, fn, med * 1e3, f"{label}.{name} B={B}", card)
 
 
 def _no_grad_call(torch, fn):
@@ -858,7 +1009,6 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
     against the plain route, on one batch; then times. Returns the launches
     of the training run."""
     from s2vt_tpu_torch.cli import train as train_cli
-    from s2vt_tpu_torch.evaluation.decode import beam_eval, greedy_eval
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     dev_flag = [] if device.type == "cuda" else ["--device", "cpu"]   # default: the card
@@ -882,9 +1032,8 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
               f"clips ({train_steps} train steps, {valid_steps} valid steps) in {wall:.3f} s; "
               f"train_loss={hist['train_loss']} valid_loss={hist['valid_loss']} "
               f"launches={launches} [{card}]", flush=True)
-        want = {"fused_s2vt_fwd": 0, "fused_s2vt_bwd": 0,
-                "lstm_seq_fwd": 2 * (train_steps + valid_steps), "lstm_seq_bwd": 2 * train_steps,
-                "att_decode_fwd": valid_steps}
+        want = expect(train=({"lstm_seq_fwd": 2, "lstm_seq_bwd": 2}, train_steps),
+                      valid=({"lstm_seq_fwd": 2, "att_decode_fwd": 1}, valid_steps))
         if launches != want:
             raise SystemExit(f"the attention training path launched {launches}, not {want}")
         losses = hist["train_loss"] + hist["valid_loss"]
@@ -895,33 +1044,10 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
 
         # Its final checkpoint through both decode entry points.
         final = os.path.join(trainer.opt.save_path, trainer.opt.start_time + "final")
-        n_test = len(trainer.train_ds.splits["test"])
-        for name, entry, kw in (("greedy_eval", greedy_eval, {}),
-                                ("beam_eval", beam_eval, dict(beam_width=BEAM_WIDTH,
-                                                              max_beam_depth=BEAM_DEPTH))):
-            reset_launches()
-            t0 = time.perf_counter()
-            preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
-            sync()
-            wall = time.perf_counter() - t0
-            counts = read_launches()
-            with plain_kernels():
-                plain_preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
-            n_req = -(-len(preds) // MAIN_BATCH)
-            same = sum(preds[k] == plain_preds.get(k) for k in preds) / max(1, len(preds))
-            empty = sum(not c for c in preds.values())
-            print(f"att final checkpoint -> {name}: {len(preds)} of {n_test} test clips in "
-                  f"{n_req} requests of B={MAIN_BATCH}, {wall:.3f} s wall, launches={counts}, "
-                  f"sentences equal to the plain route: {same:.4f}, empty: {empty}, e.g. "
-                  f"{next(iter(preds.items()), None)} [{card}]", flush=True)
-            if counts["lstm_seq_fwd"] != 2 * n_req or counts["att_decode_fwd"] != 0:
-                raise SystemExit(f"{name} launched {counts} for {n_req} requests (2 lstm_seq_fwd "
-                                 "per request: the encoder's directions)")
-            if (len(preds) != n_test or not all(isinstance(c, str) for c in preds.values())
-                    or empty == len(preds)):
-                raise SystemExit(f"{name} decoded to missing or only empty captions: {preds}")
-            if same < ROW_MATCH_MIN_F32:
-                raise SystemExit(f"{name} sentences differ from the plain route: {same:.4f}")
+        encoder = {"lstm_seq_fwd": 2}                # the encoder's two directions
+        decode_final(torch, final, dev_arg, len(trainer.train_ds.splits["test"]), sync, "att",
+                     {"greedy_eval": encoder, "beam_eval": encoder}, card,
+                     allow_empty=("greedy_eval", "beam_eval"))
 
         # Route against route on one batch, full width, f32.
         model = trainer.model
@@ -968,16 +1094,7 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
         if device.type == "cuda":
             profile_call(torch, lambda: trainer.train_step(*args), med * 1e3,
                          f"att train step B={MAIN_BATCH} float32", card)
-        feats_b = args[0]
-        for name, fn in (("greedy", lambda: model.greedy(feats_b)),
-                         ("beam", lambda: model.beam(feats_b, BEAM_WIDTH, BEAM_DEPTH))):
-            fn()
-            med = median_s(fn, reps, sync)
-            print(f"att AttBaseline.{name} V={trainer.vocab_size} B={MAIN_BATCH} float32: "
-                  f"{med * 1e3:.3f} ms per request (median of {reps}), "
-                  f"{MAIN_BATCH / med:.1f} clips/s [{card}]", flush=True)
-            if device.type == "cuda":
-                profile_call(torch, fn, med * 1e3, f"att AttBaseline.{name} B={MAIN_BATCH}", card)
+        time_requests(torch, device, model, args[0], reps, sync, "att AttBaseline", card)
     return launches
 
 
@@ -997,7 +1114,7 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
-    from s2vt_tpu_torch.ops import _build, fused_att_decode, fused_rnn, fused_s2vt
+    from s2vt_tpu_torch.ops import _build, fused_att_decode, fused_gru, fused_rnn, fused_s2vt
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
     print(f"built {', '.join(_build.library_path(k).name for k in KERNELS)} from "
@@ -1014,6 +1131,11 @@ def main() -> int:
     if not all(fused_att_decode.att_decode_shapes_ok(b, H, LENGTH, device)
                for b in KERNEL_BATCHES):
         raise SystemExit("att_decode_shapes_ok refuses the MSVD width on this card")
+    if not fused_gru.gru_seq_shapes_ok(H, device):
+        raise SystemExit("gru_seq_shapes_ok refuses the MSVD width on this card")
+
+    def stamp(label):
+        print(f"elapsed after {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. kernels against their plain versions
     errors, times = phase_kernels(torch, device, H, LENGTH, KERNEL_BATCHES, TIMED_BATCHES,
@@ -1026,6 +1148,12 @@ def main() -> int:
                                              TIMED_BATCHES, reps=20, card=card)
     errors.update(att_errors)
     times.update(att_times)
+    gru_errors, gru_times = phase_seq_kernels(torch, device, H, (LENGTH, 2 * LENGTH - 1),
+                                              KERNEL_BATCHES, TIMED_BATCHES, reps=20, card=card,
+                                              cell="gru")
+    errors.update(gru_errors)
+    times.update(gru_times)
+    stamp("phase 2")
 
     with tempfile.TemporaryDirectory() as root:
         ckpt = serving_checkpoint(torch, root, args.seed, H, FEAT, LENGTH, SERVE_CLIPS)
@@ -1035,17 +1163,26 @@ def main() -> int:
         # 5. the beam slice: its main path
         beam_launches = phase_beam(torch, device, ckpt, args.seed, H, FEAT, LENGTH, VOCAB,
                                    batches=TIMED_BATCHES, reps=5, card=card)
+    stamp("phases 3 and 5")
 
     # 4. the training slice: the main path
     launches = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
-                           TRAIN_EPOCHS, batches=TIMED_BATCHES, reps=5, card=card)
+                           TRAIN_EPOCHS, batches=TIMED_BATCHES, reps=5, card=card)[0]
+    stamp("phase 4")
     # 6. two-layer training: the backward sequence kernel's main path
     launches2 = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
                             TRAIN_EPOCHS, batches=(MAIN_BATCH,), reps=5, card=card,
-                            num_layers=2, dtypes=("float32",))
+                            num_layers=2, dtypes=("float32",))[0]
+    stamp("phase 6")
     # 7. the attention baseline: kernel #7's main path (its validation pass)
     att_launches = phase_att(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
                              TRAIN_EPOCHS, timed=TIMED_BATCHES, reps=5, card=card)
+    stamp("phase 7")
+    # 8. GRU S2VT: kernels #5 and #6 on their main paths (training; decode)
+    gru_launches, gru_beam_launches = phase_train(
+        torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS, TRAIN_EPOCHS,
+        batches=(MAIN_BATCH,), reps=5, card=card, dtypes=("float32",), rnn_type="gru")
+    stamp("phase 8")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
     # at the T of that path. The attention-decoder kernel has no library time.
@@ -1053,7 +1190,9 @@ def main() -> int:
                  "fused_s2vt_bwd": (launches, 2 * LENGTH - 1),
                  "lstm_seq_fwd": ({"lstm_seq_fwd": beam_launches}, LENGTH),
                  "lstm_seq_bwd": (launches2, 2 * LENGTH - 1),
-                 "att_decode_fwd": (att_launches, LENGTH - 1)}
+                 "att_decode_fwd": (att_launches, LENGTH - 1),
+                 "gru_seq_fwd": (gru_beam_launches, LENGTH),
+                 "gru_seq_bwd": (gru_launches, 2 * LENGTH - 1)}
     rows = []
     for name in KERNELS:
         counts, T = main_path[name]

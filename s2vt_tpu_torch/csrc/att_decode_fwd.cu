@@ -63,6 +63,8 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -75,7 +77,7 @@ constexpr int kMaxUnits = 16;         // 2U context columns per block fit one wa
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 __device__ __forceinline__ float rd(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+  return bf16 ? round_bf16(v) : v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -88,28 +90,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
-}
-
-// One halving step of the reduce-scatter: lanes that differ in bit S swap
-// halves, each keeping the sum of the half it owns. S is a template argument
-// so that every index into v is a constant and v stays in registers.
-template <int S>
-__device__ __forceinline__ void reduce_scatter_step(float (&v)[kVals], int lane) {
-  const bool upper = lane & S;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const float lo = v[i], hi = v[i + S];
-    v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, S);
-  }
-}
-
-// After the call, lanes l and l + 16 hold the warp-wide sum of v[l & 15] in v[0].
-__device__ __forceinline__ void reduce_scatter(float (&v)[kVals], int lane) {
-  reduce_scatter_step<8>(v, lane);
-  reduce_scatter_step<4>(v, lane);
-  reduce_scatter_step<2>(v, lane);
-  reduce_scatter_step<1>(v, lane);
-  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);
 }
 
 int warps_for(int U, int R) {

@@ -58,6 +58,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -106,28 +108,6 @@ __device__ __forceinline__ float chunk_val(const uint4& r, int q) {
 
 size_t smem_floats(int H) {
   return (size_t)3 * 4 * H * kUnits + kThreads;   // weight columns + partials
-}
-
-// One halving step of the reduce-scatter: lanes that differ in bit S swap
-// halves, each keeping the sum of the half it owns. S is a template argument
-// so that every index into v is a constant and v stays in registers.
-template <int S>
-__device__ __forceinline__ void reduce_scatter_step(float (&v)[kVals], int lane) {
-  const bool upper = lane & S;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const float lo = v[i], hi = v[i + S];
-    v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, S);
-  }
-}
-
-// After the call, lane l holds the warp-wide sum of v[l].
-__device__ __forceinline__ void reduce_scatter(float (&v)[kVals], int lane) {
-  reduce_scatter_step<16>(v, lane);
-  reduce_scatter_step<8>(v, lane);
-  reduce_scatter_step<4>(v, lane);
-  reduce_scatter_step<2>(v, lane);
-  reduce_scatter_step<1>(v, lane);
 }
 
 template <typename TIO>

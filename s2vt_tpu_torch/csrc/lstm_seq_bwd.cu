@@ -56,6 +56,8 @@
 
 #include <cstddef>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -65,34 +67,8 @@ constexpr int kThreads = 512;
 constexpr int kVals = 16;                          // partial sums per thread: rows x units
 constexpr int kUnitChoices[] = {4, 8};            // the instantiated units per block
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 size_t smem_floats(int H, int U) {
   return (size_t)4 * H * U + (kThreads / 32) * kVals;   // weight columns + partials
-}
-
-// One halving step of the reduce-scatter: lanes that differ in bit S swap
-// halves, each keeping the sum of the half it owns. S is a template argument
-// so that every index into v is a constant and v stays in registers.
-template <int S>
-__device__ __forceinline__ void reduce_scatter_step(float (&v)[kVals], int lane) {
-  const bool upper = lane & S;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const float lo = v[i], hi = v[i + S];
-    v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, S);
-  }
-}
-
-// After the call, lanes l and l + 16 hold the warp-wide sum of v[l & 15] in v[0].
-__device__ __forceinline__ void reduce_scatter(float (&v)[kVals], int lane) {
-  reduce_scatter_step<8>(v, lane);
-  reduce_scatter_step<4>(v, lane);
-  reduce_scatter_step<2>(v, lane);
-  reduce_scatter_step<1>(v, lane);
-  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);
 }
 
 template <int kUnits>

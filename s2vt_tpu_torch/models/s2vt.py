@@ -12,9 +12,10 @@ steps; only the decoding-stage outputs are projected to the vocabulary.
 With ``use_pallas`` on and ``fused_shapes_ok``, both LSTM chains run in one
 launch of the fused kernel (``ops/fused_s2vt.py``), and a training step's
 backward in one launch of the fused backward kernel. Where the fused kernels
-do not apply (``num_layers > 1``, and the beam encode over the raw L steps),
-``vid_rnn`` and ``word_rnn`` run each layer through the per-layer sequence
-kernels (``ops/fused_rnn.py``).
+do not apply (``num_layers > 1``, ``rnn_type='gru'``, and the beam encode
+over the raw L steps), ``vid_rnn`` and ``word_rnn`` run each layer through
+the per-layer sequence kernels (``ops/fused_rnn.py`` for an LSTM,
+``ops/fused_gru.py`` for a GRU).
 """
 
 from __future__ import annotations

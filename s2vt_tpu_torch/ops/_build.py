@@ -4,7 +4,8 @@ launch their kernels.
 Each ``s2vt_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root of the
 checkout, on first use, and loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source builds anew; a finished library is
+source, the shared device helpers of ``csrc/common.cuh`` and the flags, so
+an edited source or header builds anew; a finished library is
 reused by later processes. Each library exports a launch function with a
 plain C interface (pointers, ints, the card's index and a stream) that
 returns a ``cudaError_t``, and ``s2vt_cuda_error_string``. Nothing here
@@ -46,8 +47,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its hash covers the source, the shared headers
+    (``csrc/*.cuh``, which every source may include) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -11,8 +11,9 @@ GRU (r, z, n):      n = tanh(gi_n + r * (h @ W_hn^T + b_hn))
 The cells are explicit rather than ``nn.LSTM`` because the reference's bf16
 mode (bf16 matmul operands, float32 state and gate math) is not what
 ``nn.LSTM`` does in bf16. The input projection of a whole sequence is one
-matmul outside the time loop. With ``use_pallas``, ``TorchRNN`` runs LSTM
-layers through the per-layer sequence kernels (``ops/fused_rnn.py``).
+matmul outside the time loop. With ``use_pallas``, ``TorchRNN`` runs every
+layer through the per-layer sequence kernels: ``ops/fused_rnn.py`` for an
+LSTM, ``ops/fused_gru.py`` for a GRU.
 """
 
 from __future__ import annotations
@@ -91,16 +92,20 @@ def rnn_sequence(xs: torch.Tensor, params, h0: Optional[LSTMState] = None,
     return torch.stack(outs, dim=1), state
 
 
-def lstm_kernel_sequence(xs: torch.Tensor, params, h0: Optional[LSTMState] = None,
-                         rnn_type: str = "lstm", reverse: bool = False,
-                         compute_dtype=None) -> Tuple[torch.Tensor, LSTMState]:
-    """``rnn_sequence`` for an LSTM through the sequence kernels
-    (``ops/fused_rnn.py::lstm_sequence``). The kernels run forward in time
-    only, so ``reverse`` flips time around them, as the JAX package does."""
-    from s2vt_tpu_torch.ops.fused_rnn import lstm_sequence
+def kernel_sequence(xs: torch.Tensor, params, h0: Optional[LSTMState] = None,
+                    rnn_type: str = "lstm", reverse: bool = False,
+                    compute_dtype=None) -> Tuple[torch.Tensor, LSTMState]:
+    """``rnn_sequence`` through the sequence kernels
+    (``ops/fused_rnn.py::lstm_sequence`` or ``ops/fused_gru.py::gru_sequence``).
+    The kernels run forward in time only, so ``reverse`` flips time around
+    them, as the JAX package does."""
+    if rnn_type == "lstm":
+        from s2vt_tpu_torch.ops.fused_rnn import lstm_sequence as sequence
+    else:
+        from s2vt_tpu_torch.ops.fused_gru import gru_sequence as sequence
     if not reverse:
-        return lstm_sequence(xs, params, h0, compute_dtype)
-    out, fin = lstm_sequence(torch.flip(xs, dims=[1]), params, h0, compute_dtype)
+        return sequence(xs, params, h0, compute_dtype)
+    out, fin = sequence(torch.flip(xs, dims=[1]), params, h0, compute_dtype)
     return torch.flip(out, dims=[1]), fin
 
 
@@ -199,23 +204,23 @@ class TorchRNN(nn.Module):
     def forward(self, xs: torch.Tensor, h0=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         """xs [B, T, in] -> (outputs [B, T, H*dirs], finals per layer). With
-        ``use_pallas``, an LSTM runs each layer and direction through the
-        sequence kernels (on CPU tensors: their plain versions), as the JAX
-        module routes to its Pallas kernel; on a card whose shared memory or
-        SM count ``lstm_seq_shapes_ok`` refuses for this width, it raises."""
+        ``use_pallas``, each layer and direction runs through the sequence
+        kernels of its cell type (on CPU tensors: their plain versions), as
+        the JAX module routes to its Pallas kernels; on a card whose shared
+        memory or SM count ``lstm_seq_shapes_ok`` / ``gru_seq_shapes_ok``
+        refuses for this width, it raises."""
         sequence_fn = rnn_sequence
-        if self.use_pallas and self.rnn_type == "gru" and xs.is_cuda:
-            raise NotImplementedError(
-                "the per-layer GRU sequence kernels on CUDA (ROADMAP.md queue 2, "
-                "kernels #5 and #6) are not ported yet")
-        if self.use_pallas and self.rnn_type == "lstm":
-            from s2vt_tpu_torch.ops.fused_rnn import lstm_seq_shapes_ok
-            if not lstm_seq_shapes_ok(self.hidden_size, xs.device):
+        if self.use_pallas:
+            if self.rnn_type == "lstm":
+                from s2vt_tpu_torch.ops.fused_rnn import lstm_seq_shapes_ok as shapes_ok
+            else:
+                from s2vt_tpu_torch.ops.fused_gru import gru_seq_shapes_ok as shapes_ok
+            if not shapes_ok(self.hidden_size, xs.device):
                 raise NotImplementedError(
-                    f"the LSTM sequence kernels do not serve hidden size {self.hidden_size} "
-                    f"on {xs.device}: their resident weights do not fit one block per SM; "
-                    "build the model with use_pallas=False")
-            sequence_fn = lstm_kernel_sequence
+                    f"the {self.rnn_type.upper()} sequence kernels do not serve hidden size "
+                    f"{self.hidden_size} on {xs.device}: their resident weights do not fit one "
+                    "block per SM; build the model with use_pallas=False")
+            sequence_fn = kernel_sequence
         return multilayer_rnn(xs, self.layers, h0, self.rnn_type, self.bidirectional,
                               self.dropout, generator, deterministic, self.compute_dtype,
                               sequence_fn)

@@ -56,6 +56,17 @@ def test_build_compiles_once_and_names_by_source(toolkit):
     assert _build.library_path("k") != out
 
 
+def test_library_name_covers_the_shared_header(toolkit):
+    """An edit of a shared header names every library anew, so no source is
+    loaded from a build of an older header."""
+    csrc, _, _ = toolkit
+    before = _build.library_path("k")
+    (csrc / "common.cuh").write_text("// helpers v1\n")
+    with_header = _build.library_path("k")
+    (csrc / "common.cuh").write_text("// helpers v2\n")
+    assert len({before, with_header, _build.library_path("k")}) == 3
+
+
 def test_build_all_compiles_every_source_once(toolkit):
     csrc, build_dir, make_nvcc = toolkit
     (csrc / "k2.cu").write_text("// second kernel\n")
@@ -88,7 +99,9 @@ PORT_SOURCES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py::_fwd_kernel",
                 "fused_s2vt_bwd": "s2vt_tpu/ops/pallas_s2vt.py::_bwd_kernel",
                 "lstm_seq_fwd": "s2vt_tpu/ops/pallas_rnn.py::_fwd_kernel",
                 "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py::_bwd_kernel",
-                "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py::_kernel"}
+                "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py::_kernel",
+                "gru_seq_fwd": "s2vt_tpu/ops/pallas_gru.py::_fwd_kernel",
+                "gru_seq_bwd": "s2vt_tpu/ops/pallas_gru.py::_bwd_kernel"}
 
 
 def test_build_all_compiles_every_port_source(tmp_path, monkeypatch):
@@ -122,3 +135,16 @@ def test_each_source_names_the_tpu_kernel_it_replaces(name):
     assert f"def {func}(" in (root / path).read_text()
     assert 'extern "C"' in text and f"int {name.replace('fused_s2vt', 's2vt_fused')}(" in text
     assert "const char* s2vt_cuda_error_string(int err)" in text
+
+
+@pytest.mark.parametrize("name", sorted(PORT_SOURCES))
+def test_each_source_takes_shared_helpers_from_the_header(name):
+    """The bf16 rounding and the warp reduce-scatter live once, in
+    csrc/common.cuh; a source includes it and keeps no copy of its own."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    header = (_build.CSRC / "common.cuh").read_text()
+    for helper in ("float round_bf16(float v)", "void reduce_scatter_step(",
+                   "void reduce_scatter("):
+        assert helper in header and helper not in text
+    if "reduce_scatter(" in text or "round_bf16(" in text:
+        assert '#include "common.cuh"' in text

@@ -208,11 +208,16 @@ def test_torchrnn_kernel_route_equals_scan_route_with_dropout():
         _close(g, w, 1e-5)
 
 
-def test_gru_keeps_the_scan_on_cpu_and_shapes_ok_on_cpu():
+def test_gru_takes_the_gru_sequence_op_on_cpu_and_shapes_ok_on_cpu(monkeypatch):
+    from s2vt_tpu_torch.ops import fused_gru
     assert fused_rnn.lstm_seq_shapes_ok(100) and fused_rnn.lstm_seq_shapes_ok(6, "cpu")
+    calls = []
+    plain = fused_gru.gru_seq_fwd
+    monkeypatch.setattr(fused_gru, "gru_seq_fwd", lambda *a: calls.append(1) or plain(*a))
     m = TorchRNN(8, 4, rnn_type="gru", use_pallas=True)
     out, fin = m(torch.zeros(2, 3, 4))
     assert tuple(out.shape) == (2, 3, 8) and tuple(fin[0].h.shape) == (2, 8)
+    assert len(calls) == 1
 
 
 def test_wrappers_validate_inputs():

@@ -170,16 +170,3 @@ def test_greedy_on_card_goes_through_the_kernel():
     got = model.cuda().greedy(feats.cuda())
     assert tfused.fused_s2vt_fwd.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-
-
-@pytest.mark.cuda
-def test_per_layer_route_raises_on_card():
-    """The per-layer GRU kernels are not ported: a GRU TorchRNN with
-    use_pallas raises on the card instead of falling back to the scan (the
-    LSTM one runs the sequence kernels, tests/test_torch_fused_rnn.py)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    from s2vt_tpu_torch.ops.rnn import TorchRNN
-    rnn = TorchRNN(8, 8, rnn_type="gru", use_pallas=True).cuda()
-    with pytest.raises(NotImplementedError, match="kernels #5 and #6"):
-        rnn(torch.zeros(2, 3, 8, device="cuda"))

@@ -25,7 +25,8 @@ REQUIRED = {
     "s2vt_tpu_torch.cli.train", "s2vt_tpu_torch.data.dataset",
     "s2vt_tpu_torch.evaluation.decode", "s2vt_tpu_torch.models.attention",
     "s2vt_tpu_torch.models.beam", "s2vt_tpu_torch.models.s2vt",
-    "s2vt_tpu_torch.ops.fused_att_decode", "s2vt_tpu_torch.ops.fused_rnn",
+    "s2vt_tpu_torch.ops.fused_att_decode", "s2vt_tpu_torch.ops.fused_gru",
+    "s2vt_tpu_torch.ops.fused_rnn",
     "s2vt_tpu_torch.ops.fused_s2vt", "s2vt_tpu_torch.ops.losses",
     "s2vt_tpu_torch.training.callbacks", "s2vt_tpu_torch.training.checkpoint",
     "s2vt_tpu_torch.training.loop",

@@ -119,16 +119,18 @@ def test_callbacks_match_jax(jax_training):
 
 
 @pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("route", ["scan", "fused", "per_layer"])
+@pytest.mark.parametrize("route", ["scan", "fused", "per_layer", "gru"])
 def test_trainer_follows_jax_trainer(jax_training, corpus, tmp_path, route, masked):
     """Three epochs from the JAX Trainer's initial weights: per-epoch train
     and valid losses and the lr history within rtol 1e-4. ``per_layer`` is a
     2-layer S2VT with use_pallas: the fused kernels refuse it, so each layer
     runs through the sequence op (the Pallas kernels of pallas_rnn.py on the
-    JAX side)."""
+    JAX side). ``gru`` is a GRU S2VT with use_pallas: both RNNs run through
+    the GRU sequence op (pallas_gru.py on the JAX side)."""
     jax, _, jtraining, _, jconfig, jparallel = jax_training
     kw = dict(use_pallas=route != "scan", masked_loss=masked, async_checkpoint=False,
-              num_layers=2 if route == "per_layer" else 1)
+              num_layers=2 if route == "per_layer" else 1,
+              rnn_type="gru" if route == "gru" else "lstm")
     jopt = jconfig.Opt(**json.loads(small_opt(corpus, tmp_path / "jax", **kw).to_json()))
     jtr = jtraining.Trainer(jopt.replace(mesh_shape=(1, 1)),
                             mesh=jparallel.make_mesh((1, 1)), writer=None)
@@ -284,6 +286,35 @@ def test_cli_train_on_cpu(corpus, tmp_path, capsys):
     final = os.path.join(tr.opt.save_path, tr.opt.start_time + "final")
     preds = greedy_eval(final, batch_size=B, device="cpu")
     assert preds and all(isinstance(s, str) for s in preds.values())
+
+
+def test_cli_train_gru_on_cpu(corpus, tmp_path, monkeypatch):
+    """cli.train --rnn_type gru with use_pallas: every train and validation
+    step runs both RNNs through the GRU sequence op (its plain versions on
+    the CPU), and the final checkpoint decodes through greedy_eval and
+    beam_eval."""
+    from s2vt_tpu_torch.cli.train import main
+    from s2vt_tpu_torch.evaluation.decode import beam_eval, greedy_eval
+    from s2vt_tpu_torch.ops import fused_gru
+    calls = {"fwd": 0, "bwd": 0}
+    for key, name in (("fwd", "gru_seq_fwd"), ("bwd", "gru_seq_bwd")):
+        plain = getattr(fused_gru, name)
+        monkeypatch.setattr(fused_gru, name, lambda *a, _k=key, _p=plain: (
+            calls.__setitem__(_k, calls[_k] + 1), _p(*a))[1])
+    cfg = tmp_path / "opt.json"
+    cfg.write_text(small_opt(corpus, tmp_path, dim_hidden=16, dim_embed=16).to_json())
+    tr = main(["--config", str(cfg), "--device", "cpu", "--EPOCHS", "2", "--use_pallas",
+               "true", "--rnn_type", "gru", "--lr", "0.01"])
+    assert tr.opt.rnn_type == "gru" and not tr.model._fused_ok()
+    assert tr.model.vid_rnn.l0["w_hh"].shape == (48, 16)
+    # 2 epochs of 2 train and 1 validation steps, two RNNs each
+    assert calls == {"fwd": 2 * 2 * 3, "bwd": 2 * 2 * 2}
+    final = os.path.join(tr.opt.save_path, tr.opt.start_time + "final")
+    n_test = len(tr.train_ds.splits["test"])
+    for preds in (greedy_eval(final, batch_size=B, device="cpu"),
+                  beam_eval(final, batch_size=B, device="cpu", max_beam_depth=5)):
+        assert len(preds) == n_test and all(isinstance(s, str) for s in preds.values())
+    assert calls["fwd"] == 2 * 2 * 3 + 2 * 2 * -(-n_test // B)    # + 2 per decode request
 
 
 @pytest.mark.cuda
