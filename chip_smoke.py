@@ -46,6 +46,24 @@ Phases; a failure in any of them exits non-zero before the result line:
               gradients against the plain route's, and train-step, greedy and
               beam times.
 
+  9. serving  cli.export_serving of phase 3's checkpoint on the card: greedy
+              artifacts with float32, bf16 and int8 features and a beam
+              artifact at B = 16; ServingCaptioner.caption (launch counts read
+              around each request: greedy runs the fused forward once and the
+              out-projection-and-argmax kernel once per decode step, beam the
+              sequence kernel twice) against S2VT.greedy / S2VT.beam on the
+              kernel route; request times and decode_tokens_timed phases.
+ 10. extract  FeatureExtractor("vgg16_bn") and ("vgg16") over seeded uint8
+              clips of 80 frames of 300 x 400 (one fused conv kernel launch per
+              conv block, 13 per forward) against the plain route (F.conv2d,
+              TF32 off), clips/s; then cli.caption's ClipCaptioner with the
+              greedy artifact over the clips written as frame directories.
+
+Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
+200} and two vocab sizes, and the fused conv kernel at VGG16's 13 layer
+shapes (N = 2), and times them (B = 16 and 96; N = 80) beside cuBLAS +
+argmax and cuDNN.
+
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel.
 
@@ -86,23 +104,42 @@ TRAIN_EPOCHS = 2
 SERVE_CLIPS = 96       # serving corpus: 24 test clips, 2 requests of 16
 BEAM_WIDTH, BEAM_DEPTH = 3, 30   # Opt.beam_width, Opt.max_beam_depth
 KERNELS = ("fused_s2vt_fwd", "fused_s2vt_bwd", "lstm_seq_fwd", "lstm_seq_bwd",
-           "att_decode_fwd", "gru_seq_fwd", "gru_seq_bwd")
+           "att_decode_fwd", "gru_seq_fwd", "gru_seq_bwd", "argmax_linear", "conv3x3_bn_relu")
 MODULES = {"fused_s2vt_fwd": "fused_s2vt", "fused_s2vt_bwd": "fused_s2vt",
            "lstm_seq_fwd": "fused_rnn", "lstm_seq_bwd": "fused_rnn",
            "att_decode_fwd": "fused_att_decode", "gru_seq_fwd": "fused_gru",
-           "gru_seq_bwd": "fused_gru"}
+           "gru_seq_bwd": "fused_gru", "argmax_linear": "fused_decode",
+           "conv3x3_bn_relu": "fused_conv"}
 # The device symbol of each kernel, as torch.profiler names it.
 SYMBOLS = {"fused_s2vt_fwd": "s2vt_fused_fwd_kernel", "fused_s2vt_bwd": "s2vt_fused_bwd_kernel",
            "lstm_seq_fwd": "lstm_seq_fwd_kernel", "lstm_seq_bwd": "lstm_seq_bwd_kernel",
            "att_decode_fwd": "att_decode_fwd_kernel", "gru_seq_fwd": "gru_seq_fwd_kernel",
-           "gru_seq_bwd": "gru_seq_bwd_kernel"}
+           "gru_seq_bwd": "gru_seq_bwd_kernel", "argmax_linear": "argmax_linear_kernel",
+           "conv3x3_bn_relu": "conv3x3_bn_relu_kernel"}
 REPLACES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py:118",
             "fused_s2vt_bwd": "s2vt_tpu/ops/pallas_s2vt.py:238",
             "lstm_seq_fwd": "s2vt_tpu/ops/pallas_rnn.py:80",
             "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py:175",
             "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py:114",
             "gru_seq_fwd": "s2vt_tpu/ops/pallas_gru.py:43",
-            "gru_seq_bwd": "s2vt_tpu/ops/pallas_gru.py:124"}
+            "gru_seq_bwd": "s2vt_tpu/ops/pallas_gru.py:124",
+            "argmax_linear": "s2vt_tpu/ops/pallas_decode.py:69",
+            "conv3x3_bn_relu": "s2vt_tpu/ops/pallas_conv.py:82"}
+# Kernel #8 checks: batches and vocab sizes (one not a multiple of the
+# 64-column tile); tokens must equal the plain version's on every row whose
+# top two logits (float64) differ by more than ARGMAX_TIE_RTOL relative.
+ARGMAX_VOCABS = (VOCAB, 10001)
+ARGMAX_TIE_RTOL = 1e-5
+# Kernel #9: VGG16's 13 conv layers at 224 x 224, (H = W, C, K); checked at
+# CONV_CHECK_N frames, timed at N = LENGTH (one clip of 80 frames). Bounds
+# as allclose's: |got - want| <= tol + tol * |want| (tests/test_pallas_conv.py).
+VGG_LAYERS = ((224, 3, 64), (224, 64, 64), (112, 64, 128), (112, 128, 128), (56, 128, 256),
+              (56, 256, 256), (56, 256, 256), (28, 256, 512), (28, 512, 512), (28, 512, 512),
+              (14, 512, 512), (14, 512, 512), (14, 512, 512))
+CONV_CHECK_N = 2
+EXTRACT_CLIPS = 4      # phase 10: seeded clips of [80, 300, 400, 3] uint8 frames
+CLIP_SHAPE = (300, 400)
+FEAT_RTOL = 1e-3       # extracted features, kernel vs plain route, relative to max |feature|
 # The per-layer sequence ops: forward and backward kernel, gate blocks, cuDNN
 # yardstick.
 SEQ_CELLS = {"lstm": ("lstm_seq_fwd", "lstm_seq_bwd", 4, "LSTM"),
@@ -131,6 +168,24 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: the card's own time in the kernels
+    (and copies) it runs, summed by torch.profiler over ``reps`` calls. For
+    calls shorter than their host-side launch cost, where CUDA events around
+    back-to-back calls would time the host instead."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / reps
 
 
 def fused_bound_ms(B: int, T: int, hid: int, dtype_name: str):
@@ -579,6 +634,191 @@ def phase_att_kernel(torch, device, hid, length, batches, timed, reps, card):
     return errors, times
 
 
+def argmax_bound_ms(B: int, hid: int, vocab: int, dtype_name: str):
+    """Least time for one greedy step's out-projection and argmax: h, W and
+    the bias read once (float32: the kernel rounds operands in bf16 mode),
+    the ids written once, against the 2*B*H*V operations of the product at
+    the peak rate of its operand type."""
+    nbytes = 4 * (B * hid + vocab * hid + vocab) + 8 * B
+    return _bound(nbytes, 2 * B * hid * vocab, dtype_name)
+
+
+def conv_bound_ms(N: int, hw: int, C: int, K: int, dtype_name: str):
+    """Least time for one fused 3x3 conv block: x, the weights, scale and
+    shift read once and the output written once, in the operand type; against
+    the 2*N*H*W*9*C*K operations at the peak rate of that type."""
+    es = 2 if dtype_name == "bfloat16" else 4
+    nbytes = es * (N * hw * hw * C + 9 * C * K + N * hw * hw * K) + 8 * K
+    return _bound(nbytes, 2 * N * hw * hw * 9 * C * K, dtype_name)
+
+
+def argmax_rows_ok(torch, got, want, args, valid, bf16, integer):
+    """(rows that differ, rows that differ outside a near-tie): a row may
+    differ only where its top two logits, in float64 from the same rounded
+    operands, are within ARGMAX_TIE_RTOL relative; with integer inputs
+    (exact ties) no row may differ."""
+    diff = got != want
+    if integer:
+        return int(diff.sum()), int(diff.sum())
+    h, w, b = (a.double() for a in args)
+    if bf16:
+        h, w = h.to(torch.bfloat16).double(), w.to(torch.bfloat16).double()
+    logits = h @ w.T + b
+    if valid is not None:
+        logits[:, valid:] = -1e30
+    top2 = logits.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]) <= ARGMAX_TIE_RTOL * top2[:, 0].abs()
+    return int(diff.sum()), int((diff & ~near).sum())
+
+
+def phase_argmax_kernel(torch, device, hid, batches, timed, reps, card, vocabs=ARGMAX_VOCABS):
+    """The out-projection-and-argmax kernel against its plain version at
+    every batch, vocab size (a padded vocab among them) and mode, and on
+    integer inputs full of exact ties; times at ``timed`` (V = vocabs[0], no
+    pad) beside cuBLAS addmm + mask + torch.argmax and the bound."""
+    from s2vt_tpu_torch.ops import fused_decode as fd
+    from s2vt_tpu_torch.ops.layers import mask_invalid_vocab
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(1357)
+    errors, times = {}, {}
+    for V in vocabs:
+        for B in batches:
+            for name in ("float32", "bfloat16"):
+                bf16 = name == "bfloat16"
+                for integer in (False, True):
+                    if integer:
+                        args = [torch.randint(-3, 4, (B, hid), device=device, generator=gen),
+                                torch.randint(-2, 3, (V, hid), device=device, generator=gen),
+                                torch.randint(-2, 3, (V,), device=device, generator=gen)]
+                        args = [a.float() for a in args]
+                    else:
+                        args = [torch.randn(B, hid, device=device, generator=gen),
+                                0.05 * torch.randn(V, hid, device=device, generator=gen),
+                                torch.randn(V, device=device, generator=gen)]
+                    for valid in (None, V - 240):
+                        got = fd.argmax_linear(*args, valid, bf16)
+                        sync()
+                        want = fd.argmax_linear_reference(*args, valid, bf16)
+                        n_diff, n_bad = argmax_rows_ok(torch, got, want, args, valid, bf16,
+                                                       integer)
+                        errors[("argmax_linear", B, name, V)] = max(
+                            errors.get(("argmax_linear", B, name, V), 0.0), float(n_bad))
+                        if n_bad:
+                            raise SystemExit(f"argmax_linear disagrees with its plain version at "
+                                             f"B={B} V={V} valid={valid} {name} integer={integer}: "
+                                             f"{n_bad} rows outside a near-tie")
+                        if n_diff:
+                            print(f"kernel argmax_linear B={B} V={V} valid={valid} {name}: "
+                                  f"{n_diff} near-tie rows differ (allowed)", flush=True)
+            print(f"kernel argmax_linear B={B} V={V} H={hid}: tokens equal to the plain "
+                  f"version (f32, bf16; random and exact-tie inputs; valid_vocab None and "
+                  f"V-240) ok", flush=True)
+    V = vocabs[0]
+    for B in timed:
+        for name in ("float32", "bfloat16"):
+            bf16 = name == "bfloat16"
+            h = torch.randn(B, hid, device=device, generator=gen)
+            w = 0.05 * torch.randn(V, hid, device=device, generator=gen)
+            b = torch.randn(V, device=device, generator=gen)
+            dt = torch.bfloat16 if bf16 else torch.float32
+            hl, wl, bl = h.to(dt), w.to(dt), b.to(dt)
+            calls = {"kernel": lambda: fd.argmax_linear(h, w, b, None, bf16),
+                     "plain": lambda: fd.argmax_linear_reference(h, w, b, None, bf16),
+                     "library": lambda: torch.argmax(mask_invalid_vocab(
+                         torch.addmm(bl, hl, wl.t()), None), dim=-1)}
+            dev = {k: device_ms(torch, fn, reps * 5) for k, fn in calls.items()}
+            call = {k: cuda_ms(torch, fn, reps * 5) for k, fn in calls.items()}
+            bound, bound_by, nbytes, flops = argmax_bound_ms(B, hid, V, name)
+            times[("argmax_linear", B, name, V)] = dict(
+                ms=dev["kernel"], plain_ms=dev["plain"], library_ms=dev["library"],
+                bound_ms=bound, bound_by=bound_by)
+            print(f"time argmax_linear B={B} V={V} H={hid} {name}: kernel_ms={dev['kernel']:.4f} "
+                  f"plain_ms={dev['plain']:.4f} library_ms={dev['library']:.4f} (cuBLAS addmm + "
+                  f"argmax in {name}; device time by torch.profiler) bound_ms={bound:.4f} "
+                  f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) bound_share="
+                  f"{bound / dev['kernel']:.4f}; per call with the host's launch cost (CUDA "
+                  f"events): kernel {call['kernel']:.4f} plain {call['plain']:.4f} library "
+                  f"{call['library']:.4f} [{card}]", flush=True)
+    return errors, times
+
+
+def conv_inputs(torch, N, hw, C, K, device, gen):
+    x = torch.randn(N, hw, hw, C, device=device, generator=gen)
+    w = torch.randn(3, 3, C, K, device=device, generator=gen) * math.sqrt(2.0 / (9 * C))
+    scale = 1.0 + 0.3 * torch.randn(K, device=device, generator=gen)
+    shift = 0.1 * torch.randn(K, device=device, generator=gen)
+    return [x, w, scale, shift]
+
+
+def phase_conv_kernel(torch, device, layers, check_n, time_n, reps, card):
+    """The fused conv kernel against its plain version at each VGG16 layer
+    shape (``check_n`` images), float32 within 1e-4 and bf16 within 3e-2
+    (allclose's atol = rtol); then every layer timed at ``time_n`` images
+    beside cuDNN (F.conv2d on channels_last + affine + ReLU, TF32 off in
+    float32) and the bound. Returns the errors and, per mode, the sums over
+    the layers (one VGG16 forward of ``time_n`` frames)."""
+    from s2vt_tpu_torch.ops import fused_conv as fc
+    F = torch.nn.functional
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(97531)
+    errors, totals = {}, {}
+    for i, (hw, C, K) in enumerate(layers):
+        args = conv_inputs(torch, check_n, hw, C, K, device, gen)
+        for name in ("float32", "bfloat16"):
+            bf16 = name == "bfloat16"
+            tol = ATOL[name]
+            got = fc.conv3x3_bn_relu(*args, bf16)
+            sync()
+            want = fc.conv3x3_bn_relu_reference(*args, bf16)
+            excess = ((got.float() - want.float()).abs()
+                      - tol * (1 + want.float().abs())).max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            errors[("conv3x3_bn_relu", i, name)] = err
+            ok = excess <= 0 and bool(torch.isfinite(got.float()).all())
+            print(f"kernel conv3x3_bn_relu layer {i + 1} N={check_n} H=W={hw} C={C} K={K} {name}: "
+                  f"max_abs_err={err:.3e} (bound {tol:g} + {tol:g}*|want|) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit(f"conv3x3_bn_relu disagrees with its plain version at layer "
+                                 f"{i + 1} {name}: max_abs_err={err}")
+    for name in ("float32", "bfloat16") if time_n else ():
+        bf16 = name == "bfloat16"
+        dt = torch.bfloat16 if bf16 else torch.float32
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={})
+        for i, (hw, C, K) in enumerate(layers):
+            x, w, scale, shift = conv_inputs(torch, time_n, hw, C, K, device, gen)
+            xk, wk = x.to(dt), w.to(dt)
+            xl = xk.permute(0, 3, 1, 2)                        # NCHW view, channels_last
+            wl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            sc, sh = scale.to(dt)[None, :, None, None], shift.to(dt)[None, :, None, None]
+            k_ms = cuda_ms(torch, lambda: fc.conv3x3_bn_relu(xk, wk, scale, shift, bf16), reps)
+            p_ms = cuda_ms(torch, lambda: fc.conv3x3_bn_relu_reference(x, w, scale, shift, bf16),
+                           1, warmup=1)
+            lib_ms = cuda_ms(torch, lambda: torch.relu(F.conv2d(xl, wl, None, 1, 1) * sc + sh),
+                             reps)
+            bound, bound_by, nbytes, flops = conv_bound_ms(time_n, hw, C, K, name)
+            for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", lib_ms),
+                             ("bound_ms", bound)):
+                tot[key] += val
+            tot["by"][bound_by] = tot["by"].get(bound_by, 0.0) + bound
+            print(f"time conv3x3_bn_relu layer {i + 1} N={time_n} H=W={hw} C={C} K={K} {name}: "
+                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} (cuDNN "
+                  f"conv2d channels_last + affine + ReLU) bound_ms={bound:.4f} ({bound_by}; "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) bound_share="
+                  f"{bound / k_ms:.4f} achieved_TFLOPs={flops / k_ms / 1e9:.2f} [{card}]",
+                  flush=True)
+            del x, w, xk, wk, xl, wl
+        tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+        totals[name] = tot
+        print(f"time conv3x3_bn_relu VGG16's 13 layers N={time_n} {name}: kernel_ms="
+              f"{tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f} ({tot['bound_by']}) bound_share="
+              f"{tot['bound_ms'] / tot['ms']:.4f} [{card}]", flush=True)
+    return errors, totals
+
+
 def profile_call(torch, fn, wall_ms, label, card) -> dict:
     """One call of ``fn`` under torch.profiler: device busy time (sum of the
     kernels' own device time), each fused kernel's share of it, and the top
@@ -622,12 +862,14 @@ def serving_checkpoint(torch, root, seed, hid, feat, length, n_videos) -> str:
     """A corpus of ``n_videos`` clips and a checkpoint of random weights, both
     made from ``seed``, for the serving phases; returns the checkpoint path."""
     from s2vt_tpu_torch.config import Opt
+    from s2vt_tpu_torch.data.corpus import load_captions, special_token_indices
     from s2vt_tpu_torch.data.dataset import make_synthetic_corpus
     meta = make_synthetic_corpus(root, n_videos=n_videos, vocab_extra=200,
                                  feat_len=length, feat_dim=feat, seed=seed)
+    sp = special_token_indices(load_captions(meta["captions_file"])["word2ix"])
     opt = Opt(caption_file=meta["captions_file"], feats_path=meta["feat_path"],
               train_length=length, dim_hidden=hid, dim_embed=hid, feat_dim=feat,
-              use_pallas=True, seed=seed)
+              use_pallas=True, seed=seed, sos_ix=sp["sos_ix"], eos_ix=sp["eos_ix"])
     return make_checkpoint(torch, root, seed, opt, meta["vocab_size"])
 
 
@@ -664,7 +906,7 @@ def phase_slice(torch, device, ckpt, seed, hid, feat, length, vocab, batches, re
     print(f"slice greedy_eval: {len(preds)} clips in {n_batches} requests of B={MAIN_BATCH}, "
           f"{wall:.3f} s wall, launches={launches}, "
           f"sentences equal to the plain route: {same:.4f} [{card}]", flush=True)
-    want = expect(requests=(s2vt_launches("lstm", 1)[2], n_batches))
+    want = expect(requests=(s2vt_launches("lstm", 1, length)[2], n_batches))
     if launches != want:
         raise SystemExit(f"greedy_eval launched {launches} for {n_batches} requests, not {want}")
     if not preds or not all(isinstance(s, str) and s for s in preds.values()):
@@ -728,7 +970,7 @@ def phase_beam(torch, device, ckpt, seed, hid, feat, length, vocab, batches, rep
           f"W={BEAM_WIDTH} D={BEAM_DEPTH}, {wall:.3f} s wall, launches={launches}, sentences "
           f"equal to the plain route: {same:.4f}, e.g. {next(iter(preds.items()), None)} "
           f"[{card}]", flush=True)
-    want = expect(requests=(s2vt_launches("lstm", 1)[3], n_batches))
+    want = expect(requests=(s2vt_launches("lstm", 1, length)[3], n_batches))
     if launches != want:
         raise SystemExit(f"beam_eval launched {launches} for {n_batches} requests, not {want} "
                          "(vid_rnn and word_rnn, one sequence kernel each)")
@@ -831,21 +1073,23 @@ def train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs, ext
         "--log_dir", f"{root}/runs", *extra]
 
 
-def s2vt_launches(rnn_type, num_layers):
+def s2vt_launches(rnn_type, num_layers, length=LENGTH):
     """The kernel launches of one S2VT configuration: (per train step, per
     validation step, per greedy_eval request, per beam_eval request). One
     LSTM layer runs the fused kernels once per step each way, and greedy's
     encode on the fused forward; otherwise every layer of both RNNs runs its
-    cell's sequence kernels, once each way. Beam encodes per layer, whatever
-    the depth. Kernels not named launch 0 times."""
+    cell's sequence kernels, once each way. Each of greedy's L - 1 decode
+    steps runs the out-projection-and-argmax kernel once. Beam encodes per
+    layer, whatever the depth. Kernels not named launch 0 times."""
     seq_fwd, seq_bwd = SEQ_CELLS[rnn_type][:2]
     per_layer = 2 * num_layers                      # vid_rnn and word_rnn
     beam = {seq_fwd: per_layer}
+    steps = {"argmax_linear": length - 1}
     if rnn_type == "lstm" and num_layers == 1:
         return ({"fused_s2vt_fwd": 1, "fused_s2vt_bwd": 1}, {"fused_s2vt_fwd": 1},
-                {"fused_s2vt_fwd": 1}, beam)
+                {"fused_s2vt_fwd": 1, **steps}, beam)
     return ({seq_fwd: per_layer, seq_bwd: per_layer}, {seq_fwd: per_layer},
-            {seq_fwd: per_layer}, beam)
+            {seq_fwd: per_layer, **steps}, beam)
 
 
 def expect(**per_unit) -> dict:
@@ -871,7 +1115,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     dev_flag = [] if device.type == "cuda" else ["--device", "cpu"]   # default: the card
-    per_train, per_valid, per_greedy, per_beam = s2vt_launches(rnn_type, num_layers)
+    per_train, per_valid, per_greedy, per_beam = s2vt_launches(rnn_type, num_layers, length)
     with tempfile.TemporaryDirectory() as root:
         meta = train_corpus(root, seed, feat, length, n_videos)
         argv = train_argv(dev_flag, meta, root, seed, hid, feat, length, vocab, epochs,
@@ -1046,8 +1290,8 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
         final = os.path.join(trainer.opt.save_path, trainer.opt.start_time + "final")
         encoder = {"lstm_seq_fwd": 2}                # the encoder's two directions
         decode_final(torch, final, dev_arg, len(trainer.train_ds.splits["test"]), sync, "att",
-                     {"greedy_eval": encoder, "beam_eval": encoder}, card,
-                     allow_empty=("greedy_eval", "beam_eval"))
+                     {"greedy_eval": {**encoder, "argmax_linear": length}, "beam_eval": encoder},
+                     card, allow_empty=("greedy_eval", "beam_eval"))
 
         # Route against route on one batch, full width, f32.
         model = trainer.model
@@ -1098,6 +1342,167 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
     return launches
 
 
+def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BEAM_DEPTH):
+    """The serving slice's main path: cli.export_serving of the checkpoint
+    (greedy with float32, bf16 and int8 features, and beam, at B = batch),
+    then ServingCaptioner.caption on ``batch`` test clips with the launch
+    counts read around each request, against S2VT.greedy / S2VT.beam on the
+    kernel route (the same features, cast or quantized as the artifact's
+    payload); request times and decode_tokens_timed phases. Returns the
+    launches of the float32 greedy request and the path of its artifact."""
+    import numpy as np
+
+    from s2vt_tpu_torch.cli import export_serving
+    from s2vt_tpu_torch.config import Opt
+    from s2vt_tpu_torch.data.corpus import ids_to_sentence, load_captions, special_token_indices
+    from s2vt_tpu_torch.evaluation.decode import model_from_checkpoint
+    from s2vt_tpu_torch.serving import ServingCaptioner, quantize_feats
+    from s2vt_tpu_torch.training.checkpoint import load_config
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    dev_flag = [] if device.type == "cuda" else ["--device", "cpu"]   # default: the card
+    opt = Opt(**load_config(ckpt))
+    data = load_captions(opt.caption_file)
+    sp = special_token_indices(data["word2ix"])
+    ix2word = {int(k): v for k, v in data["ix2word"].items()}
+    _, model = model_from_checkpoint(ckpt, len(data["word2ix"]), device)
+    test_ids = data["splits"]["test"][:batch]
+    feats = np.stack([np.load(f"{opt.feats_path}/{vid}.npy") for vid in test_ids])
+
+    def sentences(rows):
+        return [ids_to_sentence(r, ix2word, sp["eos_ix"], sos_ix=sp["sos_ix"], pad_ix=sp["pad_ix"])
+                for r in rows.cpu().numpy()]
+
+    q, scale = quantize_feats(feats)
+    payloads = {"float32": torch.from_numpy(feats),
+                "bfloat16": torch.from_numpy(feats).to(torch.bfloat16).float(),
+                "int8": torch.from_numpy(q).float() * torch.from_numpy(scale)[:, None, None]}
+    greedy = dict(s2vt_launches("lstm", 1, length)[2])
+    cells = [("greedy", dtype, greedy) for dtype in ("float32", "bfloat16", "int8")]
+    cells.append(("beam", "float32", s2vt_launches("lstm", 1, length)[3]))
+    main_launches, greedy_dir = None, None
+    for mode, dtype, per_request in cells:
+        out = f"{root}/artifact_{mode}_{dtype}"
+        t0 = time.perf_counter()
+        export_serving.main(["--model_path", ckpt, "--out", out, "--batch", str(batch),
+                             "--feats_dtype", dtype, "--beam_width", str(BEAM_WIDTH),
+                             "--max_beam_depth", str(depth), *dev_flag]
+                            + (["--beam"] if mode == "beam" else []))
+        export_s = time.perf_counter() - t0
+        srv = ServingCaptioner(out)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = srv.caption(feats)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        x = payloads[dtype].to(device)
+        want = sentences(model.greedy(x) if mode == "greedy"
+                         else model.beam(x, BEAM_WIDTH, depth).tokens[:, 0])
+        same = sum(a == b for a, b in zip(got, want)) / len(want)
+        med = median_s(lambda: srv.caption(feats), reps, sync)
+        _, phases = srv.decode_tokens_timed(feats)
+        print(f"serving {mode} artifact feats={dtype} B={batch} (export {export_s:.1f} s): "
+              f"launches={launches}, sentences equal to the model's kernel route {same:.4f}, "
+              f"e.g. {got[0]!r}; {med * 1e3:.3f} ms per request (median of {reps}), "
+              f"{batch / med:.1f} clips/s; decode_tokens_timed "
+              + " ".join(f"{k}={v:.3f}" for k, v in phases.items()) + f" [{card}]", flush=True)
+        want_launches = expect(request=(per_request, 1))
+        if launches != want_launches:
+            raise SystemExit(f"the {mode} {dtype} artifact launched {launches} for one request, "
+                             f"not {want_launches}")
+        if same < 1.0 or len(got) != batch:
+            raise SystemExit(f"the {mode} {dtype} artifact's sentences differ from the model's: "
+                             f"{got} vs {want}")
+        if device.type == "cuda" and dtype == "float32":
+            profile_call(torch, lambda: srv.caption(feats), med * 1e3,
+                         f"serving {mode} request B={batch}", card)
+        if (mode, dtype) == ("greedy", "float32"):
+            main_launches, greedy_dir = launches, out
+    return main_launches, greedy_dir
+
+
+def write_frame_dir(path, frames):
+    """Frames [T, H, W, 3] uint8 as the %06d.jpg files read_frame_dir reads."""
+    from PIL import Image
+    os.makedirs(path, exist_ok=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(path, f"{i:06d}.jpg"), quality=95)
+
+
+def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, reps, card):
+    """Extraction's main path: FeatureExtractor("vgg16_bn") and ("vgg16")
+    over seeded uint8 clips (launch counts read around one forward: the fused
+    conv kernel once per conv block) against the plain route, clips/s; then
+    cli.caption's ClipCaptioner with the greedy artifact over the clips as
+    frame directories (launch counts read around the request). Returns the
+    launches of the captioning request."""
+    import numpy as np
+
+    from s2vt_tpu_torch.cli.caption import ClipCaptioner
+    from s2vt_tpu_torch.extract.pipeline import FeatureExtractor
+    from s2vt_tpu_torch.extract.video import load_clip
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    dev_arg = None if device.type == "cuda" else "cpu"      # None: the entry points' default
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    clips = [rng.integers(0, 256, (frames, *shape, 3), dtype=np.uint8) for _ in range(n_clips)]
+    n_conv = sum(1 for v in (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
+                             512, 512, 512, "M") if v != "M")
+    for name in ("vgg16_bn", "vgg16"):
+        ex = FeatureExtractor(name, device=dev_arg)
+        plain = FeatureExtractor(name, use_pallas=False, device=dev_arg)
+        reset_launches()
+        feats = ex(clips[0])
+        sync()
+        launches = read_launches()
+        want = plain(clips[0])
+        rel = float(np.abs(feats - want).max() / max(np.abs(want).max(), 1e-30))
+        k_s = median_s(lambda: ex(clips[0]), reps, sync)
+        p_s = median_s(lambda: plain(clips[0]), reps, sync)
+        batched = np.concatenate(clips)
+        kb_s = median_s(lambda: ex(batched), max(1, reps // 2), sync)
+        print(f"extract {name} [{frames}, {shape[0]}, {shape[1]}, 3] uint8 clip: launches="
+              f"{launches}, features {feats.shape} vs the plain route (F.conv2d, TF32 off): max "
+              f"rel err {rel:.3e} (bound {FEAT_RTOL:g}); kernel route {1 / k_s:.2f} clips/s "
+              f"({k_s * 1e3:.1f} ms), {n_clips} clips per forward {n_clips / kb_s:.2f} clips/s; "
+              f"plain route {1 / p_s:.2f} clips/s [{card}]", flush=True)
+        if launches != expect(forward=({"conv3x3_bn_relu": n_conv}, 1)):
+            raise SystemExit(f"FeatureExtractor({name!r}) launched {launches} in one forward")
+        if feats.shape != (frames, 4096) or not np.isfinite(feats).all() or rel > FEAT_RTOL:
+            raise SystemExit(f"{name} features malformed or off the plain route by {rel}")
+        if device.type == "cuda" and name == "vgg16":
+            profile_call(torch, lambda: ex(clips[0]), k_s * 1e3, f"extract {name} one clip",
+                         card)
+        del ex, plain
+
+    dirs = [os.path.join(root, f"clip{i:02d}") for i in range(n_clips)]
+    for d, c in zip(dirs, clips):
+        write_frame_dir(d, c)
+    cap = ClipCaptioner(backbone="vgg16", artifact=artifact, device=dev_arg)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = cap.caption(dirs)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    direct = cap.artifact.caption(np.stack([cap.extractor(load_clip(d)) for d in dirs]))
+    empty = sum(not c for c in out.values())
+    print(f"caption ClipCaptioner(vgg16, greedy artifact) over {n_clips} frame directories: "
+          f"{wall:.3f} s ({n_clips / wall:.2f} clips/s end to end), launches={launches}, "
+          f"empty: {empty}, e.g. {next(iter(out.items()))} [{card}]", flush=True)
+    per_clip = {"conv3x3_bn_relu": n_conv}
+    request = dict(s2vt_launches("lstm", 1, cap.frames_num)[2])
+    if launches != expect(clips=(per_clip, n_clips), request=(request, 1)):
+        raise SystemExit(f"ClipCaptioner launched {launches} for {n_clips} clips")
+    if len(out) != n_clips or empty or list(out.values()) != direct:
+        raise SystemExit(f"ClipCaptioner captions missing, empty or off the artifact's: {out} "
+                         f"vs {direct}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1114,7 +1519,8 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
-    from s2vt_tpu_torch.ops import _build, fused_att_decode, fused_gru, fused_rnn, fused_s2vt
+    from s2vt_tpu_torch.ops import (_build, fused_att_decode, fused_conv, fused_decode, fused_gru,
+                                    fused_rnn, fused_s2vt)
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
     print(f"built {', '.join(_build.library_path(k).name for k in KERNELS)} from "
@@ -1133,6 +1539,12 @@ def main() -> int:
         raise SystemExit("att_decode_shapes_ok refuses the MSVD width on this card")
     if not fused_gru.gru_seq_shapes_ok(H, device):
         raise SystemExit("gru_seq_shapes_ok refuses the MSVD width on this card")
+    if not all(fused_decode.argmax_linear_ok(b, H, v, device) for b in KERNEL_BATCHES
+               for v in ARGMAX_VOCABS):
+        raise SystemExit("argmax_linear_ok refuses the MSVD width on this card")
+    if not all(fused_conv.conv3x3_ok((LENGTH * EXTRACT_CLIPS, hw, hw, c), k, device)
+               for hw, c, k in VGG_LAYERS):
+        raise SystemExit("conv3x3_ok refuses a VGG16 layer on this card")
 
     def stamp(label):
         print(f"elapsed after {label}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1153,6 +1565,15 @@ def main() -> int:
                                               cell="gru")
     errors.update(gru_errors)
     times.update(gru_times)
+    am_errors, am_times = phase_argmax_kernel(torch, device, H, KERNEL_BATCHES, TIMED_BATCHES,
+                                              reps=20, card=card)
+    errors.update(am_errors)
+    times.update(am_times)
+    conv_errors, conv_totals = phase_conv_kernel(torch, device, VGG_LAYERS, CONV_CHECK_N, LENGTH,
+                                                 reps=3, card=card)
+    errors[("conv3x3_bn_relu", MAIN_BATCH, "float32", 0)] = max(
+        e for (_, _, n), e in conv_errors.items() if n == "float32")
+    times[("conv3x3_bn_relu", MAIN_BATCH, "float32", 0)] = conv_totals["float32"]
     stamp("phase 2")
 
     with tempfile.TemporaryDirectory() as root:
@@ -1163,7 +1584,15 @@ def main() -> int:
         # 5. the beam slice: its main path
         beam_launches = phase_beam(torch, device, ckpt, args.seed, H, FEAT, LENGTH, VOCAB,
                                    batches=TIMED_BATCHES, reps=5, card=card)
-    stamp("phases 3 and 5")
+        stamp("phases 3 and 5")
+        # 9. serving artifacts of the same checkpoint: kernel #8's main path
+        serve_launches, greedy_artifact = phase_serving(torch, device, ckpt, root, LENGTH,
+                                                        MAIN_BATCH, reps=5, card=card)
+        stamp("phase 9")
+        # 10. extraction and clip captioning: kernel #9's main path
+        caption_launches = phase_extract(torch, device, args.seed, greedy_artifact, root,
+                                         EXTRACT_CLIPS, LENGTH, CLIP_SHAPE, reps=3, card=card)
+        stamp("phase 10")
 
     # 4. the training slice: the main path
     launches = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
@@ -1185,14 +1614,17 @@ def main() -> int:
     stamp("phase 8")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
-    # at the T of that path. The attention-decoder kernel has no library time.
+    # at the T of that path (#8: at V = 10240; #9: VGG16's 13 layers at N =
+    # 80, summed). The attention-decoder kernel has no library time.
     main_path = {"fused_s2vt_fwd": (launches, 2 * LENGTH - 1),
                  "fused_s2vt_bwd": (launches, 2 * LENGTH - 1),
                  "lstm_seq_fwd": ({"lstm_seq_fwd": beam_launches}, LENGTH),
                  "lstm_seq_bwd": (launches2, 2 * LENGTH - 1),
                  "att_decode_fwd": (att_launches, LENGTH - 1),
                  "gru_seq_fwd": (gru_beam_launches, LENGTH),
-                 "gru_seq_bwd": (gru_launches, 2 * LENGTH - 1)}
+                 "gru_seq_bwd": (gru_launches, 2 * LENGTH - 1),
+                 "argmax_linear": (serve_launches, VOCAB),
+                 "conv3x3_bn_relu": (caption_launches, 0)}
     rows = []
     for name in KERNELS:
         counts, T = main_path[name]

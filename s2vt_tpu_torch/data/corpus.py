@@ -15,7 +15,9 @@ from __future__ import annotations
 import json
 import re
 from collections import Counter
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 # Punctuation stripped by the reference tokenizer (prepare_captions.py:57).
 _PUNCT_RE = re.compile(r"[~\\/().!,;?:]")
@@ -52,3 +54,19 @@ def special_token_indices(word2ix: Dict[str, int]) -> Dict[str, int]:
     sos=3 / eos=4; its own vocab assigns them by frequency)."""
     return {"pad_ix": word2ix.get(PAD, 0), "unk_ix": word2ix.get(UNK, 1),
             "sos_ix": word2ix.get(SOS, 3), "eos_ix": word2ix.get(EOS, 4)}
+
+
+def ids_to_sentence(ids, ix2word: Dict[int, str], eos_ix: int,
+                    sos_ix: Optional[int] = None, pad_ix: int = 0) -> str:
+    """Token ids -> sentence, truncated at the first <eos> (eval.py:54-58).
+    When ``sos_ix`` is given, leading <sos> tokens are stripped too."""
+    words: List[str] = []
+    for ix in np.asarray(ids).tolist():
+        if ix == eos_ix:
+            break
+        if sos_ix is not None and ix == sos_ix and not words:
+            continue
+        if ix == pad_ix:
+            continue
+        words.append(ix2word.get(int(ix), "<unk>"))
+    return " ".join(words)

@@ -12,33 +12,17 @@ raises unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from s2vt_tpu_torch.config import Opt
+from s2vt_tpu_torch.data.corpus import ids_to_sentence  # noqa: F401  (re-exported)
 from s2vt_tpu_torch.data.dataset import VideoDataset
 from s2vt_tpu_torch.training.checkpoint import load_checkpoint, load_config
 from s2vt_tpu_torch.training.loop import Model, build_model, pad_to_multiple
 from s2vt_tpu_torch.utils.device import resolve_device
 from s2vt_tpu_torch.utils.weights import params_from_jax
-
-
-def ids_to_sentence(ids, ix2word: Dict[int, str], eos_ix: int,
-                    sos_ix: Optional[int] = None, pad_ix: int = 0) -> str:
-    """Token ids -> sentence, truncated at the first <eos> (eval.py:54-58).
-    When ``sos_ix`` is given, leading <sos> tokens are stripped too."""
-    words: List[str] = []
-    for ix in np.asarray(ids).tolist():
-        if ix == eos_ix:
-            break
-        if sos_ix is not None and ix == sos_ix and not words:
-            continue
-        if ix == pad_ix:
-            continue
-        words.append(ix2word.get(int(ix), "<unk>"))
-    return " ".join(words)
 
 
 class CaptionDecoder:

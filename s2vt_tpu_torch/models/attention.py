@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from s2vt_tpu_torch.models import beam as beam_mod
+from s2vt_tpu_torch.ops.fused_decode import greedy_pick
 from s2vt_tpu_torch.ops.layers import (TorchEmbedding, TorchLinear, apply_linear,
                                        dropout, mask_invalid_vocab)
 from s2vt_tpu_torch.ops.rnn import LSTMState, TorchRNN, input_projection, multilayer_step
@@ -168,11 +169,13 @@ class AttBaseline(nn.Module):
         z = self._zeros(feats.shape[0], self.dim_hid)
         state = LSTMState(z, z)
         word = torch.full((feats.shape[0],), self.sos_ix, dtype=torch.long, device=feats.device)
+        pick = greedy_pick(self.out_linear.weight, self.out_linear.bias, self.valid_vocab,
+                           self.compute_dtype, self.use_pallas)
         tokens = []
         for _ in range(self.length):
             state, h, context = self._step(state, context, self.embedding.weight[word],
                                            enc_out, enc_wh)
-            word = torch.argmax(self._logits(h), dim=-1)               # first max wins
+            word = pick(h)                                             # first max wins
             tokens.append(word)
         return torch.stack(tokens, dim=1).to(torch.int32)
 

@@ -34,14 +34,15 @@ class BeamResult(NamedTuple):
     scores: torch.Tensor   # [B, W] float32 length-normalized scores, sorted desc
 
 
-def _tree_map(fn: Callable, tree):
-    """``fn`` on every tensor of a tree of tuples, lists and named tuples."""
+def _tree_map(fn: Callable, tree, *rest):
+    """``fn`` on every tensor of a tree of tuples, lists and named tuples (with
+    the matching tensors of the trees ``rest``, of the same structure)."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_tree_map(fn, t) for t in tree))
+        return type(tree)(*(_tree_map(fn, *leaves) for leaves in zip(tree, *rest)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, t) for t in tree)
+        return type(tree)(_tree_map(fn, *leaves) for leaves in zip(tree, *rest))
     raise TypeError(f"beam states hold tensors in tuples and lists, got {type(tree)}")
 
 
@@ -103,7 +104,12 @@ def beam_search(step_fn: Callable, init_states, *, sos_ix: int, eos_ix: int,
                 vocab_size: int, beam_width: int = 3, max_depth: int = 30,
                 alpha: float = 0.7, expand_k: int = 20,
                 score_mode: str = "cumulative") -> BeamResult:
-    """score_mode:
+    """Under ``torch.export`` all ``max_depth`` rounds run with no host sync
+    (a program cannot hold the stopping test); rounds after every beam has
+    finished leave the carry unchanged, so the result equals the stopping
+    loop's.
+
+    score_mode:
       'cumulative' (default): candidates ranked by the accumulated sequence
         log-prob, length-normalized: sum(logp) / len^alpha.
       'reference': the reference's scoring quirk: each node is ranked by
@@ -131,8 +137,9 @@ def beam_search(step_fn: Callable, init_states, *, sos_ix: int, eos_ix: int,
     rank0 = (torch.arange(W, device=dev) == 0)[None, None, :]
     neg = torch.tensor(NEG_INF, **f32)
 
-    d = 0
-    while d < max_depth and not bool(finished.all()):
+    def expand(d, states, tokens, cum, length, finished, score, last):
+        """One round: every live beam over the vocabulary, the global top-W
+        kept; finished beams carried unchanged."""
         new_states, logp = step_fn(states, last.reshape(B * W))
         logp = logp.reshape(B, W, V)
         # Per-node top-expand_k masking (S2VTModel.py:216). For expand_k >= W
@@ -171,14 +178,28 @@ def beam_search(step_fn: Callable, init_states, *, sos_ix: int, eos_ix: int,
         new_cum = torch.gather(cum_cand.reshape(B, W * W), 1, flat_idx)
         parent_fin = torch.gather(finished, 1, parent)
         parent_len = torch.gather(length, 1, parent)
-        length = torch.where(parent_fin, parent_len, parent_len + 1)
-        finished = parent_fin | (token == eos_ix)
+        new_length = torch.where(parent_fin, parent_len, parent_len + 1)
+        new_finished = parent_fin | (token == eos_ix)
 
         tokens = torch.gather(tokens, 1, parent[..., None].expand_as(tokens))
         tokens[:, :, d + 1] = torch.where(parent_fin, torch.full_like(token, eos_ix), token)
-        states = _gather_states(new_states, parent)
-        last, cum, score = token, new_cum, new_score
-        d += 1
+        return (_gather_states(new_states, parent), tokens, new_cum, new_length, new_finished,
+                new_score, token)
+
+    carry = (states, tokens, cum, length, finished, score, last)
+    if torch.compiler.is_exporting():
+        # Every round runs; once every beam has finished, a round keeps the
+        # carry as it is, so the result is the stopping loop's.
+        for d in range(max_depth):
+            go = ~carry[4].all()
+            new = expand(d, *carry)
+            carry = _tree_map(lambda n, c: torch.where(go, n, c), new, carry)
+    else:
+        d = 0
+        while d < max_depth and not bool(carry[4].all()):
+            carry = expand(d, *carry)
+            d += 1
+    states, tokens, cum, length, finished, score, last = carry
 
     # Unfinished survivors keep their running normalized score, like the
     # reference's final nodes.get() over a queue that may hold live nodes.

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from s2vt_tpu_torch.models import beam as beam_mod
+from s2vt_tpu_torch.ops.fused_decode import greedy_pick
 from s2vt_tpu_torch.ops.layers import (TorchEmbedding, TorchLinear, apply_linear,
                                        dropout, mask_invalid_vocab)
 from s2vt_tpu_torch.ops.rnn import LSTMState, TorchRNN, input_projection, multilayer_step
@@ -196,13 +197,14 @@ class S2VT(nn.Module):
         out_w, out_b = self.out_linear.weight, self.out_linear.bias
         vid_tail = output1[:, self.length:, :].transpose(0, 1)        # [L-1, B, H]
 
+        pick = greedy_pick(out_w, out_b, self.valid_vocab, self.compute_dtype,
+                           self.use_pallas)
+
         def decode_one(states, word, vid_out_t):
             x = torch.cat([emb_table[word], vid_out_t], dim=-1)       # [B, E+H]
             states, h = multilayer_step(states, x, word_layers, self.rnn_type,
                                         self.compute_dtype)
-            logits = apply_linear(h, out_w, out_b, self.compute_dtype)
-            logits = mask_invalid_vocab(logits, self.valid_vocab)
-            return states, torch.argmax(logits, dim=-1)               # first max wins
+            return states, pick(h)
 
         n_steps = self.length - 1
         states = states2

@@ -15,12 +15,13 @@ runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -32,6 +33,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 build_logs: Dict[str, str] = {}   # name -> nvcc's output (ptxas register and
 #   shared-memory report), for the libraries this process built
+
+OPS_NAMESPACE = "s2vt_tpu_torch"
+_OPS = torch.library.Library(OPS_NAMESPACE, "DEF")   # the kernels' operators (define_op)
+
+
+def define_op(name: str, schema: str, impl: Callable, fake: Callable):
+    """Register ``s2vt_tpu_torch::<name>`` with ``schema`` (e.g. ``"(Tensor
+    x, bool flag) -> Tensor"``): ``impl`` serves CPU and CUDA tensors (it
+    dispatches on the device itself), ``fake`` gives the output shapes for
+    tracing, so that ``torch.export`` holds the operator as one node. A
+    plain ``torch.library.Library`` definition, not ``custom_op``: it costs
+    a few microseconds per call where ``custom_op`` costs tens. Returns the
+    operator."""
+    _OPS.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        _OPS.impl(name, impl, key)
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name)
 
 
 def find_nvcc() -> str:
@@ -103,6 +122,24 @@ def load(name: str) -> ctypes.CDLL:
     lib.s2vt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.s2vt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def smem_optin(device: torch.device) -> int:
+    """The opt-in shared memory a block may use on card ``device``."""
+    return _smem_optin(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def check_device(name: str, tensor) -> None:
+    """Raise unless ``tensor`` lies on the CPU or a card: an operator's
+    wrapper checks this before the dispatcher could send another device
+    (meta, say) to the operator's shape-only implementation."""
+    if tensor.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {tensor.device}")
 
 
 def check_cuda(name: str, tensors) -> None:

@@ -158,11 +158,7 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def gru_seq_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):
-    """The forward (``gru_seq_fwd_reference``'s contract).
-
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``gru_seq_fwd.launches``; CPU tensors run the plain version."""
+def _gru_seq_fwd_impl(x_proj_t, w_hh, b_hh, h0, compute_bf16):
     if x_proj_t.device.type == "cpu":
         return gru_seq_fwd_reference(x_proj_t, w_hh, b_hh, h0, compute_bf16)
     _check_fwd_args(x_proj_t, w_hh, b_hh, h0)
@@ -180,6 +176,27 @@ def gru_seq_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):
                   (T, B, H, units, int(compute_bf16)))
     gru_seq_fwd.launches += 1
     return outs, gates, ghn, hT
+
+
+def _gru_seq_fwd_fake(x_proj_t, w_hh, b_hh, h0, compute_bf16):
+    T, B, G = x_proj_t.shape
+    outs = x_proj_t.new_empty(T, B, G // 3)
+    return outs, torch.empty_like(x_proj_t), torch.empty_like(outs), outs.new_empty(B, G // 3)
+
+
+_gru_seq_fwd_op = _build.define_op(
+    "gru_seq_fwd", "(Tensor x_proj_t, Tensor w_hh, Tensor b_hh, Tensor h0, bool compute_bf16) "
+    "-> (Tensor, Tensor, Tensor, Tensor)", _gru_seq_fwd_impl, _gru_seq_fwd_fake)
+
+
+def gru_seq_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):
+    """The forward (``gru_seq_fwd_reference``'s contract), a ``torch.library``
+    operator so that an exported decode holds it.
+
+    CUDA tensors (contiguous) launch the kernel once and add one to
+    ``gru_seq_fwd.launches``; CPU tensors run the plain version."""
+    _build.check_device("gru_seq_fwd", x_proj_t)
+    return _gru_seq_fwd_op(x_proj_t, w_hh, b_hh, h0, compute_bf16)
 
 
 gru_seq_fwd.launches = 0

@@ -142,13 +142,11 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
-    """The forward (``lstm_seq_fwd_reference``'s contract).
-
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``lstm_seq_fwd.launches``; CPU tensors run the plain version."""
+def _lstm_seq_fwd_impl(x_proj_t, w_hh, h0, c0, compute_bf16):
     if x_proj_t.device.type == "cpu":
-        return lstm_seq_fwd_reference(x_proj_t, w_hh, h0, c0, compute_bf16)
+        outs, gates, cseq, hT, cT = lstm_seq_fwd_reference(x_proj_t, w_hh, h0, c0,
+                                                           compute_bf16)
+        return outs, gates, cseq, torch.stack([hT, cT])
     _check_fwd_args(x_proj_t, w_hh, h0, c0)
     _build.check_cuda("lstm_seq_fwd", (x_proj_t, w_hh, h0, c0))
     T, B, G = x_proj_t.shape
@@ -163,6 +161,28 @@ def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
                   (x_proj_t, w_hh, h0, c0, outs, gates, cseq, fin),
                   (T, B, H, units, int(compute_bf16)))
     lstm_seq_fwd.launches += 1
+    return outs, gates, cseq, fin
+
+
+def _lstm_seq_fwd_fake(x_proj_t, w_hh, h0, c0, compute_bf16):
+    T, B, G = x_proj_t.shape
+    outs = x_proj_t.new_empty(T, B, G // 4)
+    return outs, torch.empty_like(x_proj_t), torch.empty_like(outs), outs.new_empty(2, B, G // 4)
+
+
+_lstm_seq_fwd_op = _build.define_op(
+    "lstm_seq_fwd", "(Tensor x_proj_t, Tensor w_hh, Tensor h0, Tensor c0, bool compute_bf16) "
+    "-> (Tensor, Tensor, Tensor, Tensor)", _lstm_seq_fwd_impl, _lstm_seq_fwd_fake)
+
+
+def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
+    """The forward (``lstm_seq_fwd_reference``'s contract), a ``torch.library``
+    operator so that an exported decode holds it.
+
+    CUDA tensors (contiguous) launch the kernel once and add one to
+    ``lstm_seq_fwd.launches``; CPU tensors run the plain version."""
+    _build.check_device("lstm_seq_fwd", x_proj_t)
+    outs, gates, cseq, fin = _lstm_seq_fwd_op(x_proj_t, w_hh, h0, c0, compute_bf16)
     return outs, gates, cseq, fin[0], fin[1]
 
 

@@ -210,13 +210,10 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
-    """The fused forward (``fused_s2vt_fwd_reference``'s contract).
-
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``fused_s2vt_fwd.launches``; CPU tensors run the plain version."""
+def _fused_s2vt_fwd_impl(x1, x2, w1hh, w2v, w2hh, snap_idx):
     if x1.device.type == "cpu":
-        return fused_s2vt_fwd_reference(x1, x2, w1hh, w2v, w2hh, snap_idx)
+        g1, c1, g2, c2, *fin = fused_s2vt_fwd_reference(x1, x2, w1hh, w2v, w2hh, snap_idx)
+        return g1, c1, g2, c2, torch.stack(fin)
     _check_args(x1, x2, w1hh, w2v, w2hh, snap_idx)
     tensors = (x1, x2, w1hh, w2v, w2hh)
     _build.check_cuda("fused_s2vt_fwd", tensors)
@@ -236,6 +233,30 @@ def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
     _build.launch(lib, "s2vt_fused_fwd", "fused_s2vt_fwd", (*tensors, g1, c1, g2, c2, fin, hbuf),
                   (T, B, H, units, snap_idx, int(mmd == torch.bfloat16)))
     fused_s2vt_fwd.launches += 1
+    return g1, c1, g2, c2, fin
+
+
+def _fused_s2vt_fwd_fake(x1, x2, w1hh, w2v, w2hh, snap_idx):
+    T, B, G = x1.shape
+    g = x1.new_empty(T, B, G)
+    c = x1.new_empty(T, B, G // 4, dtype=torch.float32)
+    return g, c, torch.empty_like(g), torch.empty_like(c), c.new_empty(6, B, G // 4)
+
+
+_fused_s2vt_fwd_op = _build.define_op(
+    "fused_s2vt_fwd", "(Tensor x1, Tensor x2, Tensor w1hh, Tensor w2v, Tensor w2hh, "
+    "int snap_idx) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _fused_s2vt_fwd_impl, _fused_s2vt_fwd_fake)
+
+
+def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
+    """The fused forward (``fused_s2vt_fwd_reference``'s contract), a
+    ``torch.library`` operator so that an exported decode holds it.
+
+    CUDA tensors (contiguous) launch the kernel once and add one to
+    ``fused_s2vt_fwd.launches``; CPU tensors run the plain version."""
+    _build.check_device("fused_s2vt_fwd", x1)
+    g1, c1, g2, c2, fin = _fused_s2vt_fwd_op(x1, x2, w1hh, w2v, w2hh, snap_idx)
     return (g1, c1, g2, c2, *fin.unbind(0))
 
 

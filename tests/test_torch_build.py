@@ -101,7 +101,9 @@ PORT_SOURCES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py::_fwd_kernel",
                 "lstm_seq_bwd": "s2vt_tpu/ops/pallas_rnn.py::_bwd_kernel",
                 "att_decode_fwd": "s2vt_tpu/ops/pallas_att_decode.py::_kernel",
                 "gru_seq_fwd": "s2vt_tpu/ops/pallas_gru.py::_fwd_kernel",
-                "gru_seq_bwd": "s2vt_tpu/ops/pallas_gru.py::_bwd_kernel"}
+                "gru_seq_bwd": "s2vt_tpu/ops/pallas_gru.py::_bwd_kernel",
+                "argmax_linear": "s2vt_tpu/ops/pallas_decode.py::_kernel",
+                "conv3x3_bn_relu": "s2vt_tpu/ops/pallas_conv.py::_conv_kernel"}
 
 
 def test_build_all_compiles_every_port_source(tmp_path, monkeypatch):

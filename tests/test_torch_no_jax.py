@@ -30,6 +30,13 @@ REQUIRED = {
     "s2vt_tpu_torch.ops.fused_s2vt", "s2vt_tpu_torch.ops.losses",
     "s2vt_tpu_torch.training.callbacks", "s2vt_tpu_torch.training.checkpoint",
     "s2vt_tpu_torch.training.loop",
+    "s2vt_tpu_torch.ops.fused_decode", "s2vt_tpu_torch.ops.fused_conv",
+    "s2vt_tpu_torch.serving", "s2vt_tpu_torch.serving.export",
+    "s2vt_tpu_torch.cli.export_serving", "s2vt_tpu_torch.cli.extract",
+    "s2vt_tpu_torch.cli.caption", "s2vt_tpu_torch.extract",
+    "s2vt_tpu_torch.extract.video", "s2vt_tpu_torch.extract.preprocess",
+    "s2vt_tpu_torch.extract.backbones", "s2vt_tpu_torch.extract.torch_weights",
+    "s2vt_tpu_torch.extract.pipeline", "s2vt_tpu_torch.utils.weights",
 }
 
 
