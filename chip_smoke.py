@@ -6,7 +6,8 @@
 Phases; a failure in any of them exits non-zero before the result line:
   1. device   the card's name and power limit; build every CUDA kernel of the
               port from s2vt_tpu_torch/csrc with nvcc (sm_90a), one nvcc per
-              source, all started together.
+              source, all started together; each kernel's ptxas registers
+              and spills.
   2. kernels  each kernel against its plain PyTorch version at the MSVD width
               (H = 512) for B in {1, 16, 96, 200} in float32 and bf16: the
               fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
@@ -55,14 +56,16 @@ Phases; a failure in any of them exits non-zero before the result line:
               kernel route; request times and decode_tokens_timed phases.
  10. extract  FeatureExtractor("vgg16_bn") and ("vgg16") over seeded uint8
               clips of 80 frames of 300 x 400 (one fused conv kernel launch per
-              conv block, 13 per forward) against the plain route (F.conv2d,
-              TF32 off), clips/s; then cli.caption's ClipCaptioner with the
-              greedy artifact over the clips written as frame directories.
+              conv block, 13 per forward: 12 on its tensor-core "mma" route,
+              the first layer on its "direct" route) against the plain route
+              (F.conv2d, TF32 off), clips/s; then cli.caption's ClipCaptioner
+              with the greedy artifact over the clips written as frame
+              directories.
 
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
 200} and two vocab sizes, and the fused conv kernel at VGG16's 13 layer
-shapes (N = 2), and times them (B = 16 and 96; N = 80) beside cuBLAS +
-argmax and cuDNN.
+shapes (N = 2; each layer's route printed and its launch held to it), and
+times them (B = 16 and 96; N = 80) beside cuBLAS + argmax and cuDNN.
 
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel.
@@ -147,7 +150,9 @@ SEQ_CELLS = {"lstm": ("lstm_seq_fwd", "lstm_seq_bwd", 4, "LSTM"),
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# Kernel #9's launches per VGG16 forward on each of its routes.
+VGG_ROUTES = {"mma": 12, "direct": 1}
 
 
 def card_line() -> str:
@@ -400,10 +405,16 @@ def plain_kernels():
 def reset_launches():
     for name in KERNELS:
         getattr(_module(name), name).launches = 0
+    _module("conv3x3_bn_relu").conv3x3_bn_relu.route_launches = {"mma": 0, "direct": 0}
 
 
 def read_launches() -> dict:
     return {name: getattr(_module(name), name).launches for name in KERNELS}
+
+
+def read_conv_routes() -> dict:
+    """Kernel #9's launches on each route since ``reset_launches``."""
+    return dict(_module("conv3x3_bn_relu").conv3x3_bn_relu.route_launches)
 
 
 def _check(torch, kernel, B, name, hid, T, got, want, errors, atol=ATOL):
@@ -643,13 +654,21 @@ def argmax_bound_ms(B: int, hid: int, vocab: int, dtype_name: str):
     return _bound(nbytes, 2 * B * hid * vocab, dtype_name)
 
 
-def conv_bound_ms(N: int, hw: int, C: int, K: int, dtype_name: str):
+def conv_bound_ms(N: int, hw: int, C: int, K: int, dtype_name: str, route: str):
     """Least time for one fused 3x3 conv block: x, the weights, scale and
     shift read once and the output written once, in the operand type; against
-    the 2*N*H*W*9*C*K operations at the peak rate of that type."""
+    the 2*N*H*W*9*C*K operations at the peak rate of that type. Float32 on
+    the tensor cores ("mma" route) takes three TF32 passes for float32
+    accuracy, so its operations are 3x those at the TF32 peak; the "direct"
+    route's are at the float32 peak. Returns (ms, by, bytes, the 2*N*H*W*9*C*K
+    operations of the function)."""
     es = 2 if dtype_name == "bfloat16" else 4
     nbytes = es * (N * hw * hw * C + 9 * C * K + N * hw * hw * K) + 8 * K
-    return _bound(nbytes, 2 * N * hw * hw * 9 * C * K, dtype_name)
+    flops = 2 * N * hw * hw * 9 * C * K
+    if dtype_name == "float32" and route == "mma":
+        bound, by, _, _ = _bound(nbytes, 3 * flops, "tf32")
+        return bound, by, nbytes, flops
+    return _bound(nbytes, flops, dtype_name)
 
 
 def argmax_rows_ok(torch, got, want, args, valid, bf16, integer):
@@ -753,10 +772,12 @@ def conv_inputs(torch, N, hw, C, K, device, gen):
 def phase_conv_kernel(torch, device, layers, check_n, time_n, reps, card):
     """The fused conv kernel against its plain version at each VGG16 layer
     shape (``check_n`` images), float32 within 1e-4 and bf16 within 3e-2
-    (allclose's atol = rtol); then every layer timed at ``time_n`` images
-    beside cuDNN (F.conv2d on channels_last + affine + ReLU, TF32 off in
-    float32) and the bound. Returns the errors and, per mode, the sums over
-    the layers (one VGG16 forward of ``time_n`` frames)."""
+    (allclose's atol = rtol), each call's launch held to the layer's route
+    (``conv3x3_route``: 12 "mma" and 1 "direct" over VGG16's layers); then
+    every layer timed at ``time_n`` images beside cuDNN (F.conv2d on
+    channels_last + affine + ReLU, TF32 off in float32) and the bound of its
+    route. Returns the errors and, per mode, the sums over the layers (one
+    VGG16 forward of ``time_n`` frames)."""
     from s2vt_tpu_torch.ops import fused_conv as fc
     F = torch.nn.functional
     torch.backends.cudnn.allow_tf32 = False
@@ -764,30 +785,40 @@ def phase_conv_kernel(torch, device, layers, check_n, time_n, reps, card):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(97531)
     errors, totals = {}, {}
+    routes = {"mma": 0, "direct": 0}
     for i, (hw, C, K) in enumerate(layers):
         args = conv_inputs(torch, check_n, hw, C, K, device, gen)
+        route = fc.conv3x3_route(C, K)
+        routes[route] += 1
         for name in ("float32", "bfloat16"):
             bf16 = name == "bfloat16"
             tol = ATOL[name]
+            reset_launches()
             got = fc.conv3x3_bn_relu(*args, bf16)
             sync()
+            if read_conv_routes() != {"mma": 0, "direct": 0, route: 1}:
+                raise SystemExit(f"conv3x3_bn_relu layer {i + 1} launched "
+                                 f"{read_conv_routes()}, not once on its route {route!r}")
             want = fc.conv3x3_bn_relu_reference(*args, bf16)
             excess = ((got.float() - want.float()).abs()
                       - tol * (1 + want.float().abs())).max().item()
             err = (got.float() - want.float()).abs().max().item()
             errors[("conv3x3_bn_relu", i, name)] = err
             ok = excess <= 0 and bool(torch.isfinite(got.float()).all())
-            print(f"kernel conv3x3_bn_relu layer {i + 1} N={check_n} H=W={hw} C={C} K={K} {name}: "
-                  f"max_abs_err={err:.3e} (bound {tol:g} + {tol:g}*|want|) "
+            print(f"kernel conv3x3_bn_relu layer {i + 1} N={check_n} H=W={hw} C={C} K={K} {name} "
+                  f"route={route}: max_abs_err={err:.3e} (bound {tol:g} + {tol:g}*|want|) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise SystemExit(f"conv3x3_bn_relu disagrees with its plain version at layer "
                                  f"{i + 1} {name}: max_abs_err={err}")
+    if routes != VGG_ROUTES:
+        raise SystemExit(f"VGG16's layers take the routes {routes}, not {VGG_ROUTES}")
     for name in ("float32", "bfloat16") if time_n else ():
         bf16 = name == "bfloat16"
         dt = torch.bfloat16 if bf16 else torch.float32
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={})
         for i, (hw, C, K) in enumerate(layers):
+            route = fc.conv3x3_route(C, K)
             x, w, scale, shift = conv_inputs(torch, time_n, hw, C, K, device, gen)
             xk, wk = x.to(dt), w.to(dt)
             xl = xk.permute(0, 3, 1, 2)                        # NCHW view, channels_last
@@ -798,13 +829,14 @@ def phase_conv_kernel(torch, device, layers, check_n, time_n, reps, card):
                            1, warmup=1)
             lib_ms = cuda_ms(torch, lambda: torch.relu(F.conv2d(xl, wl, None, 1, 1) * sc + sh),
                              reps)
-            bound, bound_by, nbytes, flops = conv_bound_ms(time_n, hw, C, K, name)
+            bound, bound_by, nbytes, flops = conv_bound_ms(time_n, hw, C, K, name, route)
             for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", lib_ms),
                              ("bound_ms", bound)):
                 tot[key] += val
             tot["by"][bound_by] = tot["by"].get(bound_by, 0.0) + bound
-            print(f"time conv3x3_bn_relu layer {i + 1} N={time_n} H=W={hw} C={C} K={K} {name}: "
-                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} (cuDNN "
+            print(f"time conv3x3_bn_relu layer {i + 1} N={time_n} H=W={hw} C={C} K={K} {name} "
+                  f"route={route}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} (cuDNN "
                   f"conv2d channels_last + affine + ReLU) bound_ms={bound:.4f} ({bound_by}; "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) bound_share="
                   f"{bound / k_ms:.4f} achieved_TFLOPs={flops / k_ms / 1e9:.2f} [{card}]",
@@ -815,7 +847,9 @@ def phase_conv_kernel(torch, device, layers, check_n, time_n, reps, card):
         print(f"time conv3x3_bn_relu VGG16's 13 layers N={time_n} {name}: kernel_ms="
               f"{tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
               f"bound_ms={tot['bound_ms']:.4f} ({tot['bound_by']}) bound_share="
-              f"{tot['bound_ms'] / tot['ms']:.4f} [{card}]", flush=True)
+              f"{tot['bound_ms'] / tot['ms']:.4f} "
+              f"kernel/library={tot['ms'] / tot['library_ms']:.4f} "
+              f"[{card}]", flush=True)
     return errors, totals
 
 
@@ -1457,7 +1491,7 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
         reset_launches()
         feats = ex(clips[0])
         sync()
-        launches = read_launches()
+        launches, routes = read_launches(), read_conv_routes()
         want = plain(clips[0])
         rel = float(np.abs(feats - want).max() / max(np.abs(want).max(), 1e-30))
         k_s = median_s(lambda: ex(clips[0]), reps, sync)
@@ -1465,12 +1499,14 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
         batched = np.concatenate(clips)
         kb_s = median_s(lambda: ex(batched), max(1, reps // 2), sync)
         print(f"extract {name} [{frames}, {shape[0]}, {shape[1]}, 3] uint8 clip: launches="
-              f"{launches}, features {feats.shape} vs the plain route (F.conv2d, TF32 off): max "
+              f"{launches} (#9 routes {routes}), features {feats.shape} vs the plain route "
+              f"(F.conv2d, TF32 off): max "
               f"rel err {rel:.3e} (bound {FEAT_RTOL:g}); kernel route {1 / k_s:.2f} clips/s "
               f"({k_s * 1e3:.1f} ms), {n_clips} clips per forward {n_clips / kb_s:.2f} clips/s; "
               f"plain route {1 / p_s:.2f} clips/s [{card}]", flush=True)
-        if launches != expect(forward=({"conv3x3_bn_relu": n_conv}, 1)):
-            raise SystemExit(f"FeatureExtractor({name!r}) launched {launches} in one forward")
+        if launches != expect(forward=({"conv3x3_bn_relu": n_conv}, 1)) or routes != VGG_ROUTES:
+            raise SystemExit(f"FeatureExtractor({name!r}) launched {launches}, #9 routes "
+                             f"{routes}, in one forward")
         if feats.shape != (frames, 4096) or not np.isfinite(feats).all() or rel > FEAT_RTOL:
             raise SystemExit(f"{name} features malformed or off the plain route by {rel}")
         if device.type == "cuda" and name == "vgg16":
@@ -1487,20 +1523,23 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
     out = cap.caption(dirs)
     sync()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches, routes = read_launches(), read_conv_routes()
     direct = cap.artifact.caption(np.stack([cap.extractor(load_clip(d)) for d in dirs]))
     empty = sum(not c for c in out.values())
     print(f"caption ClipCaptioner(vgg16, greedy artifact) over {n_clips} frame directories: "
-          f"{wall:.3f} s ({n_clips / wall:.2f} clips/s end to end), launches={launches}, "
+          f"{wall:.3f} s ({n_clips / wall:.2f} clips/s end to end), launches={launches} "
+          f"(#9 routes {routes}), "
           f"empty: {empty}, e.g. {next(iter(out.items()))} [{card}]", flush=True)
     per_clip = {"conv3x3_bn_relu": n_conv}
     request = dict(s2vt_launches("lstm", 1, cap.frames_num)[2])
-    if launches != expect(clips=(per_clip, n_clips), request=(request, 1)):
-        raise SystemExit(f"ClipCaptioner launched {launches} for {n_clips} clips")
+    if (launches != expect(clips=(per_clip, n_clips), request=(request, 1))
+            or routes != {k: n * n_clips for k, n in VGG_ROUTES.items()}):
+        raise SystemExit(f"ClipCaptioner launched {launches}, #9 routes {routes}, for "
+                         f"{n_clips} clips")
     if len(out) != n_clips or empty or list(out.values()) != direct:
         raise SystemExit(f"ClipCaptioner captions missing, empty or off the artifact's: {out} "
                          f"vs {direct}")
-    return launches
+    return launches, routes
 
 
 def main() -> int:
@@ -1527,9 +1566,9 @@ def main() -> int:
           f"s2vt_tpu_torch/csrc in {time.perf_counter() - t0:.1f} s, in parallel "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
     for name in KERNELS:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or "stack" in line:
-                print(f"  ptxas {name}:", line.strip(), flush=True)
+        for kernel, regs, stores, loads in _build.ptxas_entries(_build.build_logs.get(name, "")):
+            print(f"  ptxas {name}: {kernel}: {regs} registers, {stores} bytes spill stores, "
+                  f"{loads} bytes spill loads", flush=True)
     if not fused_s2vt.fused_shapes_ok(H, 1, "lstm", device):
         raise SystemExit("fused_shapes_ok refuses the MSVD width on this card")
     if not fused_rnn.lstm_seq_shapes_ok(H, device):
@@ -1590,8 +1629,9 @@ def main() -> int:
                                                         MAIN_BATCH, reps=5, card=card)
         stamp("phase 9")
         # 10. extraction and clip captioning: kernel #9's main path
-        caption_launches = phase_extract(torch, device, args.seed, greedy_artifact, root,
-                                         EXTRACT_CLIPS, LENGTH, CLIP_SHAPE, reps=3, card=card)
+        caption_launches, caption_routes = phase_extract(
+            torch, device, args.seed, greedy_artifact, root, EXTRACT_CLIPS, LENGTH, CLIP_SHAPE,
+            reps=3, card=card)
         stamp("phase 10")
 
     # 4. the training slice: the main path
@@ -1636,6 +1676,8 @@ def main() -> int:
                      "max_abs_err": errors[(name, MAIN_BATCH, "float32", T)], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"], "ok": True})
+        if name == "conv3x3_bn_relu":
+            rows[-1]["route_launches"] = caption_routes
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Callable, Dict, List, Sequence
@@ -32,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 build_logs: Dict[str, str] = {}   # name -> nvcc's output (ptxas register and
-#   shared-memory report), for the libraries this process built
+#   shared-memory report, read by ptxas_entries), for the libraries this process built
 
 OPS_NAMESPACE = "s2vt_tpu_torch"
 _OPS = torch.library.Library(OPS_NAMESPACE, "DEF")   # the kernels' operators (define_op)
@@ -108,6 +109,54 @@ def build_all(names: Sequence[str]) -> List[pathlib.Path]:
                 proc.wait()
                 tmp.unlink(missing_ok=True)
     return [out for _, out, _, _ in started]
+
+
+def kernel_symbol_name(sym: str) -> str:
+    """``conv3x3_bn_relu_kernel_mma<float, 128>`` from an Itanium-mangled
+    kernel symbol (nested names, then type, integer and named template
+    arguments); the symbol itself past what this reads."""
+    if not sym.startswith("_Z"):
+        return sym
+    rest, names = sym[3:] if sym.startswith("_ZN") else sym[2:], []
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group())
+        names.append(rest[m.end():m.end() + n])
+        rest = rest[m.end() + n:]
+    if not names:
+        return sym
+    if not rest.startswith("I"):
+        return names[-1]
+    rest, args = rest[1:], []
+    while rest and rest[0] != "E":
+        if (m := re.match(r"Li(\d+)E", rest)):
+            args.append(m.group(1))
+        elif (m := re.match(r"(\d+)", rest)):
+            m_end = m.end() + int(m.group(1))
+            args.append(rest[m.end():m_end].strip("_"))
+            rest = rest[m_end:]
+            continue
+        elif (m := re.match(r"[fdijb]", rest)):
+            args.append({"f": "float", "d": "double", "i": "int", "j": "unsigned",
+                         "b": "bool"}[m.group()])
+        else:
+            return sym
+        rest = rest[m.end():]
+    return f"{names[-1]}<{', '.join(args)}>"
+
+
+def ptxas_entries(log: str) -> List[tuple]:
+    """(kernel, registers, spill stores, spill loads) of each entry function
+    in nvcc's ``-Xptxas -v`` report."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if (m := re.search(r"Compiling entry function '(\w+)'", line)):
+            name, spills = kernel_symbol_name(m.group(1)), (0, 0)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.append((name, int(m.group(1)), *spills))
+            name = None
+    return out
 
 
 def build(name: str) -> pathlib.Path:

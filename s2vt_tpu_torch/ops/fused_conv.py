@@ -13,7 +13,12 @@ w [3, 3, C, K] (HWIO, the JAX package's layout), scale and shift [K].
 
 ``conv3x3_bn_relu`` launches the hand-written kernel
 (``csrc/conv3x3_bn_relu.cu``) for CUDA tensors and adds one to
-``conv3x3_bn_relu.launches``; for CPU tensors it runs
+``conv3x3_bn_relu.launches`` and to its route's entry of
+``conv3x3_bn_relu.route_launches``. The route is ``conv3x3_route(C, K)``:
+"mma", an implicit GEMM on the tensor cores (bf16, or float32 as three TF32
+passes), where C % 16 == 0 and K % 8 == 0 (every VGG16 layer but the
+first); "direct", a direct convolution on the CUDA cores, for every other
+shape. For CPU tensors it runs
 ``conv3x3_bn_relu_reference``: the TPU kernel's own formulation, nine
 shifted [N*H*W, C] x [C, K] matrix products over the zero-padded image with
 float32 sums. A CUDA tensor reaches the kernel or an exception. With
@@ -33,7 +38,9 @@ import torch.nn.functional as F
 from s2vt_tpu_torch.ops import _build
 
 _LIB_NAME = "conv3x3_bn_relu"
-_MAX_GRID_Z = 65535          # the kernel's grid holds one image per z index
+_MAX_GRID_Z = 65535          # the direct kernel's grid holds one image per z index
+_MAX_PIXELS = 2 ** 31 - 1 - 128   # the mma kernel indexes output pixels N*H*W by int
+_ENTRY = {"mma": "conv3x3_bn_relu_mma", "direct": "conv3x3_bn_relu"}
 
 
 def _check_args(x, weight, scale, shift):
@@ -93,47 +100,68 @@ def _kernel_lib() -> ctypes.CDLL:
     """The kernel's library (built on first use) with its C signatures."""
     lib = _build.load(_LIB_NAME)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_bn_relu.argtypes = [vp] * 5 + [ci] * 7 + [vp]
-    lib.conv3x3_bn_relu.restype = ci
+    for entry in _ENTRY.values():
+        getattr(lib, entry).argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        getattr(lib, entry).restype = ci
     return lib
+
+
+def conv3x3_route(in_channels: int, out_channels: int) -> str:
+    """The kernel that serves C = ``in_channels`` -> K = ``out_channels`` on
+    the card: "mma" (tensor cores; its 16-byte copies need C % 16 == 0 and
+    K % 8 == 0) or "direct" (CUDA cores, any C and K)."""
+    return "mma" if in_channels % 16 == 0 and out_channels % 8 == 0 else "direct"
 
 
 def conv3x3_ok(x_shape: Sequence[int], out_channels: int,
                device: Optional[torch.device] = None) -> bool:
     """Whether the kernel serves input ``x_shape`` (NHWC) with
     ``out_channels`` outputs on ``device``: any H, W, C and K (the first VGG
-    layer's C = 3 included), at most 65535 images per launch. On the CPU the
-    plain version serves every NHWC shape. (The TPU gate
+    layer's C = 3 included); on the mma route at most 2^31 - 129 output
+    pixels N*H*W per launch, on the direct route at most 65535 images. On the
+    CPU the plain version serves every NHWC shape. (The TPU gate
     ``conv3x3_shapes_ok`` -- C and K multiples of 64, a VMEM budget -- is a
     fact of the TPU's tiles and VMEM.)"""
     if len(x_shape) != 4 or min(*x_shape, out_channels) < 1:
         return False
     device = torch.device(device if device is not None else "cpu")
-    return device.type != "cuda" or x_shape[0] <= _MAX_GRID_Z
+    if device.type != "cuda":
+        return True
+    N, H, W, C = x_shape
+    if conv3x3_route(C, out_channels) == "mma":
+        return N * H * W <= _MAX_PIXELS
+    return N <= _MAX_GRID_Z
 
 
 def conv3x3_bn_relu(x, weight, scale, shift, compute_bf16: bool = False) -> torch.Tensor:
     """relu(conv3x3_same(x, weight) * scale + shift) (the reference's
     contract): x [N, H, W, C] float32 or bf16, weight [3, 3, C, K], scale and
-    shift [K]. CUDA tensors launch the kernel once and add one to
-    ``conv3x3_bn_relu.launches``; CPU tensors run the plain version."""
+    shift [K]. CUDA tensors launch the kernel of ``conv3x3_route(C, K)`` once
+    and add one to ``conv3x3_bn_relu.launches`` and to
+    ``conv3x3_bn_relu.route_launches[route]``; CPU tensors run the plain
+    version."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_reference(x, weight, scale, shift, compute_bf16)
     _check_args(x, weight, scale, shift)
     N, H, W, C = x.shape
     K = weight.shape[3]
+    route = conv3x3_route(C, K)
     if not conv3x3_ok(x.shape, K, x.device):
-        raise ValueError(f"conv3x3_bn_relu: {N} images exceed the kernel's {_MAX_GRID_Z} "
-                         "per launch")
+        raise ValueError(f"conv3x3_bn_relu: input {tuple(x.shape)} exceeds the {route} "
+                         f"kernel's grid ({_MAX_PIXELS} pixels or {_MAX_GRID_Z} images)")
     mmd = torch.bfloat16 if compute_bf16 else torch.float32
-    args = (x.to(mmd).contiguous(), weight.to(mmd).contiguous(),
-            scale.float().contiguous(), shift.float().contiguous())
+    args = [x.to(mmd).contiguous(), weight.to(mmd).contiguous(),
+            scale.float().contiguous(), shift.float().contiguous()]
     _build.check_cuda("conv3x3_bn_relu", args)
+    if route == "mma":        # 16-byte copies: a view at an odd offset gets its own storage
+        args[:2] = [t if t.data_ptr() % 16 == 0 else t.clone() for t in args[:2]]
     out = torch.empty(N, H, W, K, dtype=mmd, device=x.device)
-    _build.launch(_kernel_lib(), "conv3x3_bn_relu", "conv3x3_bn_relu", (*args, out),
+    _build.launch(_kernel_lib(), _ENTRY[route], "conv3x3_bn_relu", (*args, out),
                   (N, H, W, C, K, int(compute_bf16)))
     conv3x3_bn_relu.launches += 1
+    conv3x3_bn_relu.route_launches[route] += 1
     return out
 
 
 conv3x3_bn_relu.launches = 0
+conv3x3_bn_relu.route_launches = {"mma": 0, "direct": 0}

@@ -150,3 +150,28 @@ def test_each_source_takes_shared_helpers_from_the_header(name):
         assert helper in header and helper not in text
     if "reduce_scatter(" in text or "round_bf16(" in text:
         assert '#include "common.cuh"' in text
+
+
+def test_ptxas_entries_reads_each_kernel_of_the_report():
+    """nvcc's -Xptxas -v report as it reads on the card's machine: one
+    (kernel, registers, spill stores, spill loads) per entry function, the
+    mangled name read back to the kernel and its template arguments."""
+    mangled = ("_ZN51_GLOBAL__N__dcf086c9_18_conv3x3_bn_relu_cu_5c8ebb6c26conv3x3_bn_relu_"
+               "kernel_mmaI13__nv_bfloat16Li128EEEvPKT_S4_PKfS6_PS2_iiiiii")
+    direct = ("_ZN51_GLOBAL__N__dcf086c9_18_conv3x3_bn_relu_cu_5c8ebb6c22conv3x3_bn_relu_"
+              "kernelIfEEvPKT_S3_PKfS5_PS1_iiii")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {mangled}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 124 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{direct}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {direct}",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 43264 bytes smem",
+        "ptxas info    : Compiling entry function 'plain_c_kernel' for 'sm_90a'",
+        "ptxas info    : Used 12 registers"])
+    assert _build.ptxas_entries(log) == [
+        ("conv3x3_bn_relu_kernel_mma<nv_bfloat16, 128>", 124, 0, 0),
+        ("conv3x3_bn_relu_kernel<float>", 64, 4, 4), ("plain_c_kernel", 12, 0, 0)]
+    assert _build.kernel_symbol_name("_ZN4name6kernelILb1EEEvv") == "_ZN4name6kernelILb1EEEvv"
