@@ -63,9 +63,13 @@ Phases; a failure in any of them exits non-zero before the result line:
               directories.
 
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
-200} and two vocab sizes, and the fused conv kernel at VGG16's 13 layer
-shapes (N = 2; each layer's route printed and its launch held to it), and
-times them (B = 16 and 96; N = 80) beside cuBLAS + argmax and cuDNN.
+200} and two vocab sizes (in bf16 with a float32 W, direct route, and with a
+bf16 W as greedy_pick hands it, mma route; each call's route printed and its
+launch held to it), and the fused conv kernel at VGG16's 13 layer shapes
+(N = 2; each layer's route likewise), and times them (B = 16 and 96 in both
+modes, #8's direct route beside its mma route; N = 80) beside cuBLAS +
+argmax and cuDNN. Phase 9 holds each greedy request's #8 launches to the
+mma route.
 
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel.
@@ -153,6 +157,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # Kernel #9's launches per VGG16 forward on each of its routes.
 VGG_ROUTES = {"mma": 12, "direct": 1}
+# The kernels with two routes, each counting its launches per route.
+ROUTED = ("argmax_linear", "conv3x3_bn_relu")
 
 
 def card_line() -> str:
@@ -405,16 +411,18 @@ def plain_kernels():
 def reset_launches():
     for name in KERNELS:
         getattr(_module(name), name).launches = 0
-    _module("conv3x3_bn_relu").conv3x3_bn_relu.route_launches = {"mma": 0, "direct": 0}
+    for name in ROUTED:
+        getattr(_module(name), name).route_launches = {"mma": 0, "direct": 0}
 
 
 def read_launches() -> dict:
     return {name: getattr(_module(name), name).launches for name in KERNELS}
 
 
-def read_conv_routes() -> dict:
-    """Kernel #9's launches on each route since ``reset_launches``."""
-    return dict(_module("conv3x3_bn_relu").conv3x3_bn_relu.route_launches)
+def read_routes(name: str) -> dict:
+    """Kernel ``name``'s launches on each of its routes since
+    ``reset_launches``."""
+    return dict(getattr(_module(name), name).route_launches)
 
 
 def _check(torch, kernel, B, name, hid, T, got, want, errors, atol=ATOL):
@@ -645,13 +653,21 @@ def phase_att_kernel(torch, device, hid, length, batches, timed, reps, card):
     return errors, times
 
 
-def argmax_bound_ms(B: int, hid: int, vocab: int, dtype_name: str):
-    """Least time for one greedy step's out-projection and argmax: h, W and
-    the bias read once (float32: the kernel rounds operands in bf16 mode),
-    the ids written once, against the 2*B*H*V operations of the product at
-    the peak rate of its operand type."""
-    nbytes = 4 * (B * hid + vocab * hid + vocab) + 8 * B
-    return _bound(nbytes, 2 * B * hid * vocab, dtype_name)
+def argmax_bound_ms(B: int, hid: int, vocab: int, dtype_name: str, route: str):
+    """Least time for one greedy step's out-projection and argmax: h and the
+    bias (float32) and W in the type the route's kernel reads (bf16 on the
+    "mma" route in bf16 mode; float32 otherwise, the "direct" kernel rounding
+    a float32 W in registers) read once, the ids written once; against the
+    2*B*H*V operations of the product at the peak rate of the operand type,
+    float32 on the mma route as three TF32 passes at the TF32 peak (as
+    conv_bound_ms). Returns (ms, by, bytes, the 2*B*H*V operations)."""
+    w_bytes = 2 if dtype_name == "bfloat16" and route == "mma" else 4
+    nbytes = 4 * (B * hid + vocab) + w_bytes * vocab * hid + 8 * B
+    flops = 2 * B * hid * vocab
+    if dtype_name == "float32" and route == "mma":
+        bound, by, _, _ = _bound(nbytes, 3 * flops, "tf32")
+        return bound, by, nbytes, flops
+    return _bound(nbytes, flops, dtype_name)
 
 
 def conv_bound_ms(N: int, hw: int, C: int, K: int, dtype_name: str, route: str):
@@ -693,8 +709,12 @@ def argmax_rows_ok(torch, got, want, args, valid, bf16, integer):
 def phase_argmax_kernel(torch, device, hid, batches, timed, reps, card, vocabs=ARGMAX_VOCABS):
     """The out-projection-and-argmax kernel against its plain version at
     every batch, vocab size (a padded vocab among them) and mode, and on
-    integer inputs full of exact ties; times at ``timed`` (V = vocabs[0], no
-    pad) beside cuBLAS addmm + mask + torch.argmax and the bound."""
+    integer inputs full of exact ties; in bf16 with a float32 W (the
+    "direct" route) and with a bf16 W (the "mma" route: what greedy_pick
+    hands it), each call's launch held to ``argmax_linear_route``. Times at
+    ``timed`` (V = vocabs[0], no pad) of the route the decode path takes,
+    beside the direct route (the CUDA-core kernel, W float32), cuBLAS addmm
+    + mask + torch.argmax and the bound."""
     from s2vt_tpu_torch.ops import fused_decode as fd
     from s2vt_tpu_torch.ops.layers import mask_invalid_vocab
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -702,6 +722,7 @@ def phase_argmax_kernel(torch, device, hid, batches, timed, reps, card, vocabs=A
     errors, times = {}, {}
     for V in vocabs:
         for B in batches:
+            routes = {}
             for name in ("float32", "bfloat16"):
                 bf16 = name == "bfloat16"
                 for integer in (False, True):
@@ -714,24 +735,37 @@ def phase_argmax_kernel(torch, device, hid, batches, timed, reps, card, vocabs=A
                         args = [torch.randn(B, hid, device=device, generator=gen),
                                 0.05 * torch.randn(V, hid, device=device, generator=gen),
                                 torch.randn(V, device=device, generator=gen)]
-                    for valid in (None, V - 240):
-                        got = fd.argmax_linear(*args, valid, bf16)
-                        sync()
-                        want = fd.argmax_linear_reference(*args, valid, bf16)
-                        n_diff, n_bad = argmax_rows_ok(torch, got, want, args, valid, bf16,
-                                                       integer)
-                        errors[("argmax_linear", B, name, V)] = max(
-                            errors.get(("argmax_linear", B, name, V), 0.0), float(n_bad))
-                        if n_bad:
-                            raise SystemExit(f"argmax_linear disagrees with its plain version at "
-                                             f"B={B} V={V} valid={valid} {name} integer={integer}: "
-                                             f"{n_bad} rows outside a near-tie")
-                        if n_diff:
-                            print(f"kernel argmax_linear B={B} V={V} valid={valid} {name}: "
-                                  f"{n_diff} near-tie rows differ (allowed)", flush=True)
+                    h, w, b = args
+                    for wk in ([w, w.to(torch.bfloat16)] if bf16 else [w]):
+                        route = fd.argmax_linear_route(hid, wk.dtype, bf16,
+                                                       (h.data_ptr(), wk.data_ptr()))
+                        routes[f"{name} W {str(wk.dtype)[6:]}"] = route
+                        for valid in (None, V - 240):
+                            reset_launches()
+                            got = fd.argmax_linear(h, wk, b, valid, bf16)
+                            sync()
+                            if read_routes("argmax_linear") != {"mma": 0, "direct": 0, route: 1}:
+                                raise SystemExit(f"argmax_linear B={B} V={V} {name} W "
+                                                 f"{wk.dtype} launched "
+                                                 f"{read_routes('argmax_linear')}, not once on "
+                                                 f"its route {route!r}")
+                            want = fd.argmax_linear_reference(h, wk, b, valid, bf16)
+                            n_diff, n_bad = argmax_rows_ok(torch, got, want, [h, wk, b], valid,
+                                                           bf16, integer)
+                            errors[("argmax_linear", B, name, V)] = max(
+                                errors.get(("argmax_linear", B, name, V), 0.0), float(n_bad))
+                            if n_bad:
+                                raise SystemExit(f"argmax_linear disagrees with its plain version "
+                                                 f"at B={B} V={V} valid={valid} {name} W "
+                                                 f"{wk.dtype} route={route} integer={integer}: "
+                                                 f"{n_bad} rows outside a near-tie")
+                            if n_diff:
+                                print(f"kernel argmax_linear B={B} V={V} valid={valid} {name} "
+                                      f"route={route}: {n_diff} near-tie rows differ (allowed)",
+                                      flush=True)
             print(f"kernel argmax_linear B={B} V={V} H={hid}: tokens equal to the plain "
-                  f"version (f32, bf16; random and exact-tie inputs; valid_vocab None and "
-                  f"V-240) ok", flush=True)
+                  f"version (random and exact-tie inputs; valid_vocab None and V-240) ok; "
+                  f"routes " + ", ".join(f"{k}: {r}" for k, r in routes.items()), flush=True)
     V = vocabs[0]
     for B in timed:
         for name in ("float32", "bfloat16"):
@@ -741,23 +775,31 @@ def phase_argmax_kernel(torch, device, hid, batches, timed, reps, card, vocabs=A
             b = torch.randn(V, device=device, generator=gen)
             dt = torch.bfloat16 if bf16 else torch.float32
             hl, wl, bl = h.to(dt), w.to(dt), b.to(dt)
-            calls = {"kernel": lambda: fd.argmax_linear(h, w, b, None, bf16),
-                     "plain": lambda: fd.argmax_linear_reference(h, w, b, None, bf16),
+            wk = w.to(dt)                       # the weight greedy_pick hands the kernel
+            route = fd.argmax_linear_route(hid, wk.dtype, bf16, (h.data_ptr(), wk.data_ptr()))
+            calls = {"kernel": lambda: fd.argmax_linear(h, wk, b, None, bf16),
+                     "direct": lambda: fd._launch(h, w, b, None, bf16, "direct"),
+                     "plain": lambda: fd.argmax_linear_reference(h, wk, b, None, bf16),
                      "library": lambda: torch.argmax(mask_invalid_vocab(
                          torch.addmm(bl, hl, wl.t()), None), dim=-1)}
             dev = {k: device_ms(torch, fn, reps * 5) for k, fn in calls.items()}
             call = {k: cuda_ms(torch, fn, reps * 5) for k, fn in calls.items()}
-            bound, bound_by, nbytes, flops = argmax_bound_ms(B, hid, V, name)
+            bound, bound_by, nbytes, flops = argmax_bound_ms(B, hid, V, name, route)
+            d_bound = argmax_bound_ms(B, hid, V, name, "direct")[0]
             times[("argmax_linear", B, name, V)] = dict(
                 ms=dev["kernel"], plain_ms=dev["plain"], library_ms=dev["library"],
-                bound_ms=bound, bound_by=bound_by)
-            print(f"time argmax_linear B={B} V={V} H={hid} {name}: kernel_ms={dev['kernel']:.4f} "
-                  f"plain_ms={dev['plain']:.4f} library_ms={dev['library']:.4f} (cuBLAS addmm + "
-                  f"argmax in {name}; device time by torch.profiler) bound_ms={bound:.4f} "
-                  f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) bound_share="
-                  f"{bound / dev['kernel']:.4f}; per call with the host's launch cost (CUDA "
-                  f"events): kernel {call['kernel']:.4f} plain {call['plain']:.4f} library "
-                  f"{call['library']:.4f} [{card}]", flush=True)
+                bound_ms=bound, bound_by=bound_by, direct_ms=dev["direct"], route=route)
+            print(f"time argmax_linear B={B} V={V} H={hid} {name} route={route}: kernel_ms="
+                  f"{dev['kernel']:.4f} direct_ms={dev['direct']:.4f} (the CUDA-core route, W "
+                  f"float32; bound {d_bound:.4f}) plain_ms={dev['plain']:.4f} library_ms="
+                  f"{dev['library']:.4f} (cuBLAS addmm + argmax in {name}; device time by "
+                  f"torch.profiler) bound_ms={bound:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP) bound_share={bound / dev['kernel']:.4f} "
+                  f"kernel/library={dev['kernel'] / dev['library']:.4f} "
+                  f"kernel/direct={dev['kernel'] / dev['direct']:.4f}; per call with the "
+                  f"host's launch cost (CUDA events): kernel {call['kernel']:.4f} direct "
+                  f"{call['direct']:.4f} plain {call['plain']:.4f} library {call['library']:.4f} "
+                  f"[{card}]", flush=True)
     return errors, times
 
 
@@ -796,9 +838,10 @@ def phase_conv_kernel(torch, device, layers, check_n, time_n, reps, card):
             reset_launches()
             got = fc.conv3x3_bn_relu(*args, bf16)
             sync()
-            if read_conv_routes() != {"mma": 0, "direct": 0, route: 1}:
+            if read_routes("conv3x3_bn_relu") != {"mma": 0, "direct": 0, route: 1}:
                 raise SystemExit(f"conv3x3_bn_relu layer {i + 1} launched "
-                                 f"{read_conv_routes()}, not once on its route {route!r}")
+                                 f"{read_routes('conv3x3_bn_relu')}, not once on its route "
+                                 f"{route!r}")
             want = fc.conv3x3_bn_relu_reference(*args, bf16)
             excess = ((got.float() - want.float()).abs()
                       - tol * (1 + want.float().abs())).max().item()
@@ -1382,8 +1425,10 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
     then ServingCaptioner.caption on ``batch`` test clips with the launch
     counts read around each request, against S2VT.greedy / S2VT.beam on the
     kernel route (the same features, cast or quantized as the artifact's
-    payload); request times and decode_tokens_timed phases. Returns the
-    launches of the float32 greedy request and the path of its artifact."""
+    payload), each request's #8 launches all on its "mma" route; request
+    times and decode_tokens_timed phases. Returns the launches of the float32
+    greedy request, its #8 launches per route, and the path of its
+    artifact."""
     import numpy as np
 
     from s2vt_tpu_torch.cli import export_serving
@@ -1414,7 +1459,7 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
     greedy = dict(s2vt_launches("lstm", 1, length)[2])
     cells = [("greedy", dtype, greedy) for dtype in ("float32", "bfloat16", "int8")]
     cells.append(("beam", "float32", s2vt_launches("lstm", 1, length)[3]))
-    main_launches, greedy_dir = None, None
+    main_launches, main_routes, greedy_dir = None, None, None
     for mode, dtype, per_request in cells:
         out = f"{root}/artifact_{mode}_{dtype}"
         t0 = time.perf_counter()
@@ -1429,7 +1474,7 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         got = srv.caption(feats)
         sync()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches, routes = read_launches(), read_routes("argmax_linear")
         x = payloads[dtype].to(device)
         want = sentences(model.greedy(x) if mode == "greedy"
                          else model.beam(x, BEAM_WIDTH, depth).tokens[:, 0])
@@ -1437,7 +1482,8 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         med = median_s(lambda: srv.caption(feats), reps, sync)
         _, phases = srv.decode_tokens_timed(feats)
         print(f"serving {mode} artifact feats={dtype} B={batch} (export {export_s:.1f} s): "
-              f"launches={launches}, sentences equal to the model's kernel route {same:.4f}, "
+              f"launches={launches}, #8 routes={routes}, sentences equal to the model's "
+              f"kernel route {same:.4f}, "
               f"e.g. {got[0]!r}; {med * 1e3:.3f} ms per request (median of {reps}), "
               f"{batch / med:.1f} clips/s; decode_tokens_timed "
               + " ".join(f"{k}={v:.3f}" for k, v in phases.items()) + f" [{card}]", flush=True)
@@ -1445,6 +1491,9 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         if launches != want_launches:
             raise SystemExit(f"the {mode} {dtype} artifact launched {launches} for one request, "
                              f"not {want_launches}")
+        if routes != {"mma": launches["argmax_linear"], "direct": 0}:
+            raise SystemExit(f"the {mode} {dtype} artifact's #8 launches took the routes "
+                             f"{routes}, not all the mma route")
         if same < 1.0 or len(got) != batch:
             raise SystemExit(f"the {mode} {dtype} artifact's sentences differ from the model's: "
                              f"{got} vs {want}")
@@ -1452,8 +1501,8 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
             profile_call(torch, lambda: srv.caption(feats), med * 1e3,
                          f"serving {mode} request B={batch}", card)
         if (mode, dtype) == ("greedy", "float32"):
-            main_launches, greedy_dir = launches, out
-    return main_launches, greedy_dir
+            main_launches, main_routes, greedy_dir = launches, routes, out
+    return main_launches, main_routes, greedy_dir
 
 
 def write_frame_dir(path, frames):
@@ -1491,7 +1540,7 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
         reset_launches()
         feats = ex(clips[0])
         sync()
-        launches, routes = read_launches(), read_conv_routes()
+        launches, routes = read_launches(), read_routes("conv3x3_bn_relu")
         want = plain(clips[0])
         rel = float(np.abs(feats - want).max() / max(np.abs(want).max(), 1e-30))
         k_s = median_s(lambda: ex(clips[0]), reps, sync)
@@ -1523,7 +1572,7 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
     out = cap.caption(dirs)
     sync()
     wall = time.perf_counter() - t0
-    launches, routes = read_launches(), read_conv_routes()
+    launches, routes = read_launches(), read_routes("conv3x3_bn_relu")
     direct = cap.artifact.caption(np.stack([cap.extractor(load_clip(d)) for d in dirs]))
     empty = sum(not c for c in out.values())
     print(f"caption ClipCaptioner(vgg16, greedy artifact) over {n_clips} frame directories: "
@@ -1625,8 +1674,8 @@ def main() -> int:
                                    batches=TIMED_BATCHES, reps=5, card=card)
         stamp("phases 3 and 5")
         # 9. serving artifacts of the same checkpoint: kernel #8's main path
-        serve_launches, greedy_artifact = phase_serving(torch, device, ckpt, root, LENGTH,
-                                                        MAIN_BATCH, reps=5, card=card)
+        serve_launches, serve_routes, greedy_artifact = phase_serving(
+            torch, device, ckpt, root, LENGTH, MAIN_BATCH, reps=5, card=card)
         stamp("phase 9")
         # 10. extraction and clip captioning: kernel #9's main path
         caption_launches, caption_routes = phase_extract(
@@ -1678,6 +1727,8 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"], "ok": True})
         if name == "conv3x3_bn_relu":
             rows[-1]["route_launches"] = caption_routes
+        if name == "argmax_linear":
+            rows[-1]["route_launches"] = serve_routes
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,23 +7,28 @@ per row of h [B, H],
 
 with W_out [V, H] in torch layout: the token a greedy step picks, without the
 [B, V] logits ever reaching device memory. Ties go to the lowest index, as
-``torch.argmax`` and ``jnp.argmax`` break them. With ``compute_bf16`` h and W
-are rounded to bf16 as product operands and the sums stay float32, as
-``apply_linear`` does.
+``torch.argmax`` and ``jnp.argmax`` break them. h and b are float32, W
+float32 or bf16. With ``compute_bf16`` h and W are rounded to bf16 as
+product operands and the sums stay float32, as ``apply_linear`` does; a
+bf16 W is that rounding done once, ahead (``greedy_pick`` does it once per
+decode).
 
 ``argmax_linear`` is a ``torch.library`` operator, so that an exported
 decode (``serving/export.py``) holds it as one node: on CUDA tensors it
-launches the hand-written kernel (``csrc/argmax_linear.cu``) and adds one to
-``argmax_linear.launches``; on CPU tensors it runs
-``argmax_linear_reference``, the same function in plain PyTorch. A CUDA
-tensor reaches the kernel or an exception.
+launches the hand-written kernel (``csrc/argmax_linear.cu``) of the route
+``argmax_linear_route`` picks and adds one to ``argmax_linear.launches`` and
+to ``argmax_linear.route_launches[route]``: "mma", on the tensor cores (bf16
+with a bf16 W, or float32 as three TF32 passes), where h and W come in
+aligned 16-byte chunks; "direct", on the CUDA cores, for every other shape.
+On CPU tensors it runs ``argmax_linear_reference``, the same function in
+plain PyTorch. A CUDA tensor reaches a kernel or an exception.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +36,7 @@ from s2vt_tpu_torch.ops import _build
 from s2vt_tpu_torch.ops.layers import apply_linear, mask_invalid_vocab
 
 _LIB_NAME = "argmax_linear"
+_ENTRY = {"mma": "argmax_linear_mma", "direct": "argmax_linear"}
 
 
 def _check_args(h, weight, bias):
@@ -40,8 +46,9 @@ def _check_args(h, weight, bias):
     if weight.shape[1] != h.shape[1] or bias.shape[0] != weight.shape[0]:
         raise ValueError(f"shapes disagree: h {tuple(h.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}")
-    if any(t.dtype != torch.float32 for t in (h, weight, bias)):
-        raise TypeError(f"h, weight and bias must be float32, got "
+    if (h.dtype, bias.dtype) != (torch.float32, torch.float32) or \
+            weight.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"h and bias must be float32 and weight float32 or bfloat16, got "
                         f"{[t.dtype for t in (h, weight, bias)]}")
     if len({t.device for t in (h, weight, bias)}) != 1:
         raise ValueError("h, weight and bias lie on several devices")
@@ -51,8 +58,9 @@ def _check_args(h, weight, bias):
 def argmax_linear_reference(h, weight, bias, valid_vocab: Optional[int] = None,
                             compute_bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the logits through ``apply_linear``
-    and ``mask_invalid_vocab``, then ``torch.argmax`` (first maximum). h [B, H],
-    weight [V, H], bias [V], float32. Returns int64 [B]."""
+    and ``mask_invalid_vocab``, then ``torch.argmax`` (first maximum). h [B, H]
+    and bias [V] float32, weight [V, H] float32 or bf16 (its values, widened
+    exactly). Returns int64 [B]."""
     _check_args(h, weight, bias)
     logits = apply_linear(h, weight, bias, torch.bfloat16 if compute_bf16 else None)
     return torch.argmax(mask_invalid_vocab(logits, valid_vocab), dim=-1)
@@ -63,10 +71,13 @@ def _kernel_lib() -> ctypes.CDLL:
     """The kernel's library (built on first use) with its C signatures."""
     lib = _build.load(_LIB_NAME)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.argmax_linear.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-    lib.argmax_linear.restype = ci
+    for entry in _ENTRY.values():
+        getattr(lib, entry).argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        getattr(lib, entry).restype = ci
     lib.argmax_linear_vocab_tiles.argtypes = [ci, ci]
     lib.argmax_linear_vocab_tiles.restype = ci
+    lib.argmax_linear_mma_vocab_tiles.argtypes = [ci, ci]
+    lib.argmax_linear_mma_vocab_tiles.restype = ci
     lib.argmax_linear_smem_bytes.argtypes = [ci]
     lib.argmax_linear_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -89,13 +100,29 @@ def _counter(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def argmax_linear_route(hidden: int, weight_dtype: torch.dtype, compute_bf16: bool,
+                        pointers: Sequence[int] = ()) -> str:
+    """The kernel that serves hidden size ``hidden`` with a weight of
+    ``weight_dtype`` on the card: "mma" (tensor cores) where its 16-byte
+    copies are legal -- the weight in the mode's operand type (bf16 with
+    ``compute_bf16``, else float32), rows of ``hidden`` values that are whole
+    16-byte chunks in both h (float32) and W (H % 4 == 0 in float32, H % 8 ==
+    0 in bf16), and every address in ``pointers`` (h's and W's) 16-byte
+    aligned -- else "direct" (CUDA cores, any H, W read as float32)."""
+    mode_dtype = torch.bfloat16 if compute_bf16 else torch.float32
+    row_ok = hidden % (8 if compute_bf16 else 4) == 0
+    aligned = all(p % 16 == 0 for p in pointers)
+    return "mma" if weight_dtype == mode_dtype and row_ok and aligned else "direct"
+
+
 def argmax_linear_ok(batch, hidden: int, vocab: int,
                      device: Optional[torch.device] = None) -> bool:
     """Whether the kernel serves [batch, hidden] x [vocab, hidden] on
     ``device``: on a card, a 32-row tile of h in float32 must fit a block's
-    opt-in shared memory (on an H100, hidden <= 1816); any batch and vocab
-    size are tiled. On the CPU the plain version serves every shape. (The TPU
-    gate ``pallas_decode.argmax_linear_ok`` -- B % 8, B <= 2048, H % 128, a
+    opt-in shared memory for the direct route, the one that serves every
+    shape (on an H100, hidden <= 1816); any batch and vocab size are tiled.
+    On the CPU the plain version serves every shape. (The TPU gate
+    ``pallas_decode.argmax_linear_ok`` -- B % 8, B <= 2048, H % 128, a
     128-multiple vocab block -- is a fact of the TPU's tiles and VMEM.)"""
     device = torch.device(device if device is not None else "cpu")
     if hidden < 1 or vocab < 1:
@@ -111,21 +138,34 @@ def _argmax_linear_impl(h, weight, bias, valid_vocab, compute_bf16):
     _check_args(h, weight, bias)
     _build.check_cuda("argmax_linear", (h, weight, bias))
     B, H = h.shape
-    V = weight.shape[0]
-    if not argmax_linear_ok(B, H, V, h.device):
+    if not argmax_linear_ok(B, H, weight.shape[0], h.device):
         raise ValueError(f"argmax_linear: hidden size {H} does not fit the kernel's shared "
                          f"memory on {h.device}")
+    route = argmax_linear_route(H, weight.dtype, compute_bf16, (h.data_ptr(), weight.data_ptr()))
+    return _launch(h, weight, bias, valid_vocab, compute_bf16, route)
+
+
+def _launch(h, weight, bias, valid_vocab, compute_bf16, route):
+    """One launch of ``route``'s kernel on CUDA tensors checked by the
+    operator (or, to time one route beside the other, by the caller). The
+    direct route reads W as float32: a bf16 W is widened (exactly) first."""
+    if route == "direct" and weight.dtype != torch.float32:
+        weight = weight.float()
+    B, H = h.shape
+    V = weight.shape[0]
     lib = _kernel_lib()
-    tiles = lib.argmax_linear_vocab_tiles(B, V)
+    tiles = (lib.argmax_linear_mma_vocab_tiles(V, int(compute_bf16)) if route == "mma"
+             else lib.argmax_linear_vocab_tiles(B, V))
     out = torch.empty(B, dtype=torch.int64, device=h.device)
     pmax = torch.empty(tiles, B, dtype=torch.float32, device=h.device)
     pidx = torch.empty(tiles, B, dtype=torch.int32, device=h.device)
     counter = _counter(h.device, -(-B // 16))
     valid = V if valid_vocab is None else max(0, min(int(valid_vocab), V))
-    _build.launch(lib, "argmax_linear", "argmax_linear", (h, weight, bias, out, pmax, pidx,
-                                                         counter),
+    _build.launch(lib, _ENTRY[route], "argmax_linear", (h, weight, bias, out, pmax, pidx,
+                                                       counter),
                   (B, H, V, valid, int(compute_bf16)))
     argmax_linear.launches += 1
+    argmax_linear.route_launches[route] += 1
     return out
 
 
@@ -141,21 +181,25 @@ _argmax_linear_op = _build.define_op(
 def argmax_linear(h, weight, bias, valid_vocab: Optional[int] = None,
                   compute_bf16: bool = False) -> torch.Tensor:
     """The greedy step's token (``argmax_linear_reference``'s contract):
-    int64 [B]. CUDA tensors (contiguous, float32) launch the kernel once and
-    add one to ``argmax_linear.launches``; CPU tensors run the plain
-    version."""
+    int64 [B]. CUDA tensors (contiguous; h and bias float32, weight float32
+    or bf16) launch the kernel of ``argmax_linear_route`` once and add one to
+    ``argmax_linear.launches`` and to ``argmax_linear.route_launches[route]``;
+    CPU tensors run the plain version."""
     _build.check_device("argmax_linear", h)
     return _argmax_linear_op(h, weight, bias, valid_vocab, compute_bf16)
 
 
 argmax_linear.launches = 0
+argmax_linear.route_launches = {"mma": 0, "direct": 0}
 
 
 def greedy_pick(out_w, out_b, valid_vocab: Optional[int], compute_dtype, use_pallas: bool):
     """The token picker of a greedy step, h [B, H] -> ids [B]: with
     ``use_pallas``, one ``argmax_linear`` per step (on CPU tensors its plain
     version), raising on a card whose shared memory ``argmax_linear_ok``
-    refuses for this hidden size; without it ``apply_linear``,
+    refuses for this hidden size; in bf16, where the mma route reads W as
+    bf16, the weight is rounded to bf16 here, once per decode (bit for bit
+    what each step would round). Without ``use_pallas``: ``apply_linear``,
     ``mask_invalid_vocab`` and ``torch.argmax``. The first maximum wins
     either way."""
     if use_pallas:
@@ -165,7 +209,10 @@ def greedy_pick(out_w, out_b, valid_vocab: Optional[int], compute_dtype, use_pal
                 f"{out_w.device}: a 32-row tile of h does not fit a block's shared memory; "
                 "build the model with use_pallas=False")
         bf16 = compute_dtype == torch.bfloat16
-        return lambda h: argmax_linear(h.contiguous(), out_w, out_b, valid_vocab, bf16)
+        w = out_w
+        if bf16 and argmax_linear_route(out_w.shape[1], torch.bfloat16, True) == "mma":
+            w = out_w.to(torch.bfloat16)
+        return lambda h: argmax_linear(h.contiguous(), w, out_b, valid_vocab, bf16)
 
     def plain(h):
         logits = apply_linear(h, out_w, out_b, compute_dtype)

@@ -17,8 +17,10 @@ in float32 (the source as it is also in bf16). Variants:
 - ``warp_64x32``: float32 on 64 x 32 warp tiles (4-warp blocks) under the
   same 128-register cap; ``warp_64x32_uncapped`` without the cap.
 
-Needs a card and ``nvcc``; builds into ``build/conv_variants/`` at the root
-of the checkout.
+The variants are made from ``kernel_source()``: the source with the shared
+headers it includes (``csrc/*.cuh``, where the TF32 split lives) written in
+place. Needs a card and ``nvcc``; builds into ``build/conv_variants/`` at
+the root of the checkout.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from s2vt_tpu_torch.ops import _build
 from s2vt_tpu_torch.ops.fused_conv import conv3x3_bn_relu_reference
+from s2vt_tpu_torch.tools import _variants
 
 OUT_DIR = _build.BUILD_DIR.parent / "conv_variants"
 # VGG16's layers on the mma route: (H = W, C, K)
@@ -60,17 +63,15 @@ _MI = "static constexpr int kMI = kES == 2 ? 4 : 2;"
 _BOUNDS = "__launch_bounds__(MmaTile<T, BN>::kThreads, MmaTile<T, BN>::kMinBlocks)"
 
 
+def kernel_source() -> str:
+    """The kernel's source with the shared headers written in place."""
+    return _variants.source_with_headers("conv3x3_bn_relu")
+
+
 def variants(src: str) -> dict:
     """{name: source}: the kernel as it is ("as_built") and with one choice
     of its float32 route undone each, found by exact text."""
-
-    def sub(text: str, *pairs) -> str:
-        for old, new in pairs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{old!r} found {text.count(old)} times")
-            text = text.replace(old, new)
-        return text
-
+    sub = _variants.replace_once
     return {"as_built": src,
             "one_accumulator": sub(src, (_PART, _ONE_ACC)),
             "cvt_rounding": sub(src, (_RNA_INT, _RNA_CVT), (_SMALL, _SMALL_ROUNDED)),
@@ -81,30 +82,12 @@ def variants(src: str) -> dict:
 
 
 def build(sources: dict) -> dict:
-    """{name: (loaded library, nvcc's report)}, one nvcc per variant, all
-    started together."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        # the variant's copy includes the shared header by its absolute path
-        text = text.replace('#include "common.cuh"', f'#include "{_build.CSRC}/common.cuh"')
-        (OUT_DIR / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT_DIR / f"{name}.so"),
-             str(OUT_DIR / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        lib = ctypes.CDLL(str(OUT_DIR / f"{name}.so"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+    """{name: (loaded library, nvcc's report)}, all built together."""
+    libs = _variants.build(sources, OUT_DIR)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for lib, _ in libs.values():
         lib.conv3x3_bn_relu_mma.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         lib.conv3x3_bn_relu_mma.restype = ci
-        lib.s2vt_cuda_error_string.argtypes = [ci]
-        lib.s2vt_cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = (lib, out)
     return libs
 
 
@@ -155,7 +138,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    libs = build(variants((_build.CSRC / "conv3x3_bn_relu.cu").read_text()))
+    libs = build(variants(kernel_source()))
     gen = torch.Generator(device=dev).manual_seed(0)
     check = inputs(CHECK[0], CHECK[1], CHECK[3], CHECK[4], dev, gen)
     want = conv3x3_bn_relu_reference(*check)

@@ -268,10 +268,13 @@ def test_vgg16_forward_route_launches_on_card(bf16):
 
 def test_variant_tool_undoes_each_choice_of_the_kernel_source():
     """tools/conv_mma_variants.py finds each float32 design choice in the
-    kernel source by its exact text; each variant changes what it names."""
+    kernel source (with the shared headers it includes written in place) by
+    its exact text; each variant changes what it names."""
     from s2vt_tpu_torch.ops import _build
     from s2vt_tpu_torch.tools import conv_mma_variants as tool
-    src = (_build.CSRC / "conv3x3_bn_relu.cu").read_text()
+    src = tool.kernel_source()
+    assert '#include "mma.cuh"' not in src and "void split_tf32(" in src
+    assert (_build.CSRC / "conv3x3_bn_relu.cu").read_text().count('#include "mma.cuh"') == 1
     got = tool.variants(src)
     assert got["as_built"] == src
     for name, gone in (("one_accumulator", "float part[4]"), ("cvt_rounding", "+ 0x1000u"),

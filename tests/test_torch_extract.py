@@ -227,7 +227,9 @@ def test_whole_backbone_matches_jax(name):
     with torch.no_grad():
         got = port(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, spec["feat_dim"])
-    np.testing.assert_allclose(got, want, atol=2e-3)
+    # float32 rounding scales with the features: a random-weight ResNet152's
+    # reach ~1e12, where 2e-3 is far below one ulp; 2e-3 holds up to ~200.
+    np.testing.assert_allclose(got, want, atol=max(2e-3, 1e-5 * float(np.abs(want).max())))
 
 
 # ---------------------------------------------------------------------------
