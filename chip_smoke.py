@@ -13,7 +13,11 @@ Phases; a failure in any of them exits non-zero before the result line:
               fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
               sequence kernels at T = L = 80 (beam encode) and T = 159
               (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
-              times beside the bound.
+              times beside the bound. The LSTM backward has two routes
+              (lstm_seq_bwd_route: "cluster" at H = 512, "direct"): each
+              check call's route is printed and its launch held to it, the
+              direct route is checked on the same inputs (its launch held to
+              it too) and timed beside the routed kernel, in turns.
   3. slice    greedy_eval -> model_from_checkpoint on a corpus and a
               checkpoint made from --seed at H = E = 512, F = 4096, L = 80
               (the serving path; the kernel launch counts are read around it),
@@ -31,11 +35,13 @@ Phases; a failure in any of them exits non-zero before the result line:
               path; launch counts read around it) against the plain route,
               then S2VT.beam at V = 10240, B in {16, 96}, float32 and bf16.
   6. train2   phase 4 with --num_layers 2: each layer of both RNNs runs the
-              per-layer sequence kernels; train-step times at B = 16 only.
+              per-layer sequence kernels, every LSTM backward launch on its
+              "cluster" route; train-step times at B = 16 only.
   7. att      the attention baseline: cli.train --model att_baseline on the
               corpus of phase 4 (launch counts read around it: the
               attention-decoder kernel runs the no-gradient validation pass,
-              the sequence kernels the bi-LSTM encoder), greedy_eval and
+              the sequence kernels the bi-LSTM encoder, every backward launch
+              on its "cluster" route), greedy_eval and
               beam_eval of its final checkpoint against the plain route, the
               kernel routes against the plain routes on one batch, and
               teacher-forced, train-step, greedy and beam times.
@@ -158,7 +164,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # Kernel #9's launches per VGG16 forward on each of its routes.
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
-ROUTED = ("argmax_linear", "conv3x3_bn_relu")
+ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_bwd")
 
 
 def card_line() -> str:
@@ -237,15 +243,21 @@ def seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
     return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
 
 
-def seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
+def seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "direct"):
     """Least time for the per-layer backward: gates [T, B, 4H], c, c_prev and
     dout [T, B, H], W_hh, dhT and dcT read once; dxp [T, B, 4H], dh0 and dc0
     written once, all float32; against the 2*T*B*4H*H operations of
-    dgates @ W_hh at the peak rate of its operand type."""
+    dgates @ W_hh at the peak rate of its operand type, float32 on the
+    "cluster" route (tensor cores) as three TF32 passes at the TF32 peak (as
+    argmax_bound_ms). Returns (ms, by, bytes, the 2*T*B*4H*H operations)."""
     G = 4 * hid
     nbytes = 4 * (T * B * G + 3 * T * B * hid + G * hid + 2 * B * hid   # inputs
                   + T * B * G + 2 * B * hid)                          # dxp, dh0, dc0
-    return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
+    flops = 2 * T * B * G * hid
+    if dtype_name == "float32" and route == "cluster":
+        bound, by, _, _ = _bound(nbytes, 3 * flops, "tf32")
+        return bound, by, nbytes, flops
+    return _bound(nbytes, flops, dtype_name)
 
 
 def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
@@ -412,7 +424,8 @@ def reset_launches():
     for name in KERNELS:
         getattr(_module(name), name).launches = 0
     for name in ROUTED:
-        getattr(_module(name), name).route_launches = {"mma": 0, "direct": 0}
+        fn = getattr(_module(name), name)
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def read_launches() -> dict:
@@ -423,6 +436,14 @@ def read_routes(name: str) -> dict:
     """Kernel ``name``'s launches on each of its routes since
     ``reset_launches``."""
     return dict(getattr(_module(name), name).route_launches)
+
+
+def held_to_route(name: str, before: dict, route: str, label: str) -> None:
+    """Raise unless kernel ``name`` launched once since ``before`` (its
+    route counts then), on ``route``."""
+    got = {k: v - before[k] for k, v in read_routes(name).items()}
+    if got != {**dict.fromkeys(got, 0), route: 1}:
+        raise SystemExit(f"{name} {label} launched {got}, not once on its route {route!r}")
 
 
 def _check(torch, kernel, B, name, hid, T, got, want, errors, atol=ATOL):
@@ -558,10 +579,24 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
                 _check(torch, fwd_name, B, name, hid, T, got, fwd_ref(*args, bf16), errors,
                        SEQ_ATOL)
                 bargs, hprev = seq_bwd_inputs(torch, cell, args, got, device, gen)
+                before = read_routes(bwd_name) if bwd_name in ROUTED else None
                 dxp = bwd(*bargs, bf16)
                 sync()
-                _check(torch, bwd_name, B, name, hid, T, dxp, bwd_ref(*bargs, bf16), errors,
-                       SEQ_ATOL)
+                route = "direct"
+                if before is not None and device.type == "cuda":
+                    route = mod.lstm_seq_bwd_route(hid, B, device)
+                    print(f"kernel {bwd_name} B={B} {name} T={T}: route {route}", flush=True)
+                    held_to_route(bwd_name, before, route, f"B={B} {name} T={T}")
+                want = bwd_ref(*bargs, bf16)
+                _check(torch, bwd_name, B, name, hid, T, dxp, want, errors, SEQ_ATOL)
+                if route != "direct":
+                    # The direct route on the same inputs, held to the same bound.
+                    before = read_routes(bwd_name)
+                    got_direct = mod.launch_bwd(*bargs, bf16, "direct")
+                    sync()
+                    held_to_route(bwd_name, before, "direct", f"B={B} {name} T={T} (direct)")
+                    _check(torch, f"{bwd_name}[direct]", B, name, hid, T, got_direct, want,
+                           errors, SEQ_ATOL)
                 if B not in timed:
                     continue
                 dtype = torch.bfloat16 if bf16 else torch.float32
@@ -580,16 +615,39 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
 
                 for kernel, fn, ref, fargs, lib in ((fwd_name, fwd, fwd_ref, args, lib_fwd),
                                                     (bwd_name, bwd, bwd_ref, bargs, lib_bwd)):
-                    k_ms = cuda_ms(torch, lambda: fn(*fargs, bf16), reps)
+                    routed = kernel == bwd_name and before is not None
+                    if routed:
+                        # The routed kernel and the direct route in turns:
+                        # routed, direct, direct, routed.
+                        def direct():
+                            mod.launch_bwd(*fargs, bf16, "direct")
+                        turns = [cuda_ms(torch, f, reps) for f in
+                                 (lambda: fn(*fargs, bf16), direct, direct,
+                                  lambda: fn(*fargs, bf16))]
+                        k_ms, d_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                    else:
+                        k_ms = cuda_ms(torch, lambda: fn(*fargs, bf16), reps)
                     p_ms = cuda_ms(torch, lambda: ref(*fargs, bf16), max(1, reps // 5), warmup=1)
-                    bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name)
-                    extra = {}
+                    if routed:
+                        bound, bound_by, nbytes, flops = seq_bwd_bound_ms(B, T, hid, name, route)
+                    else:
+                        bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name)
+                    extra, steps = {}, T
                     if kernel == bwd_name:
                         extra["with_dw_ms"] = cuda_ms(torch, bwd_and_dw, reps)
+                        steps = T + 1                      # iterations of the reverse sweep
                     times[(kernel, B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib,
                                                        bound_ms=bound, bound_by=bound_by, **extra)
+                    route_note = ""
+                    if routed:
+                        d_bound = seq_bwd_bound_ms(B, T, hid, name, "direct")[0]
+                        times[(kernel, B, name, T)].update(route=route, direct_ms=d_ms)
+                        route_note = (f"route={route} direct_route_ms={d_ms:.4f} "
+                                      f"({d_ms / steps * 1e3:.2f} us per iteration; bound "
+                                      f"{d_bound:.4f}, share {d_bound / d_ms:.4f}) ")
                     print(f"time {kernel} B={B} T={T} {name}: kernel_ms={k_ms:.4f} "
-                          f"({k_ms / T * 1e3:.2f} us per step) "
+                          f"({k_ms / steps * 1e3:.2f} us per "
+                          f"{'iteration' if kernel == bwd_name else 'step'}) " + route_note
                           + "".join(f"kernel_plus_dW_ms={v:.4f} " for v in extra.values())
                           + f"plain_ms={p_ms:.4f} library_ms={lib:.4f} "
                           f"({'cuDNN fwd+bwd less fwd' if extra else 'cuDNN fwd'}) "
@@ -1169,6 +1227,17 @@ def s2vt_launches(rnn_type, num_layers, length=LENGTH):
             {seq_fwd: per_layer, **steps}, beam)
 
 
+def hold_cluster_routes(routes: dict, n: int, device, label: str, card: str) -> None:
+    """Phases 6 and 7: each of the main path's ``n`` launches of the LSTM
+    backward (H = 512, B = 16) on its "cluster" route, on the card."""
+    if device.type != "cuda" or not n:
+        return
+    print(f"{label}: lstm_seq_bwd route launches {routes} [{card}]", flush=True)
+    if routes != {"cluster": n, "direct": 0}:
+        raise SystemExit(f"{label}: lstm_seq_bwd launched {routes}, not {n} times on its "
+                         "cluster route")
+
+
 def expect(**per_unit) -> dict:
     """Every kernel's expected launches: for each keyword's (counts per
     unit, units), counts times units, summed; 0 for a kernel none names."""
@@ -1202,7 +1271,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         trainer = train_cli.main(argv)
         sync()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches, routes = read_launches(), read_routes("lstm_seq_bwd")
         hist = trainer.history
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
@@ -1217,6 +1286,8 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         if launches != want:
             raise SystemExit(f"the {rnn_type} training path ({num_layers} layers) launched "
                              f"{launches}, not {want}")
+        hold_cluster_routes(routes, launches["lstm_seq_bwd"], device,
+                            f"{rnn_type} {num_layers}-layer training", card)
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"training losses missing or not finite: {hist}")
@@ -1255,7 +1326,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
                               device, gen)[0]
         time_requests(torch, device, trainer.model, feats, reps, sync,
                       f"{rnn_type} {num_layers}-layer S2VT", card)
-    return launches, decode_launches
+    return launches, decode_launches, routes
 
 
 def decode_final(torch, final, dev_arg, n_test, sync, label, per_request, card, allow_empty):
@@ -1343,7 +1414,7 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
         trainer = train_cli.main(argv)
         sync()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches, routes = read_launches(), read_routes("lstm_seq_bwd")
         hist = trainer.history
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
@@ -1357,6 +1428,7 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
                       valid=({"lstm_seq_fwd": 2, "att_decode_fwd": 1}, valid_steps))
         if launches != want:
             raise SystemExit(f"the attention training path launched {launches}, not {want}")
+        hold_cluster_routes(routes, launches["lstm_seq_bwd"], device, "att training", card)
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"training losses missing or not finite: {hist}")
@@ -1688,16 +1760,16 @@ def main() -> int:
                            TRAIN_EPOCHS, batches=TIMED_BATCHES, reps=5, card=card)[0]
     stamp("phase 4")
     # 6. two-layer training: the backward sequence kernel's main path
-    launches2 = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
-                            TRAIN_EPOCHS, batches=(MAIN_BATCH,), reps=5, card=card,
-                            num_layers=2, dtypes=("float32",))[0]
+    launches2, _, routes2 = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB,
+                                        TRAIN_CLIPS, TRAIN_EPOCHS, batches=(MAIN_BATCH,), reps=5,
+                                        card=card, num_layers=2, dtypes=("float32",))
     stamp("phase 6")
     # 7. the attention baseline: kernel #7's main path (its validation pass)
     att_launches = phase_att(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
                              TRAIN_EPOCHS, timed=TIMED_BATCHES, reps=5, card=card)
     stamp("phase 7")
     # 8. GRU S2VT: kernels #5 and #6 on their main paths (training; decode)
-    gru_launches, gru_beam_launches = phase_train(
+    gru_launches, gru_beam_launches, _ = phase_train(
         torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS, TRAIN_EPOCHS,
         batches=(MAIN_BATCH,), reps=5, card=card, dtypes=("float32",), rnn_type="gru")
     stamp("phase 8")
@@ -1729,6 +1801,8 @@ def main() -> int:
             rows[-1]["route_launches"] = caption_routes
         if name == "argmax_linear":
             rows[-1]["route_launches"] = serve_routes
+        if name == "lstm_seq_bwd":
+            rows[-1]["route_launches"] = routes2
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,14 +21,15 @@ float32 matrix product outside the kernel (``pallas_rnn.py:295-298``).
 (``csrc/lstm_seq_fwd.cu``, ``csrc/lstm_seq_bwd.cu``) for CUDA tensors and run
 ``lstm_seq_fwd_reference`` / ``lstm_seq_bwd_reference``, the same recurrences
 in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception.
+exception. The backward has two kernels, its "cluster" and "direct" routes,
+and ``lstm_seq_bwd_route`` picks one from the shapes and the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -128,10 +129,8 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    """The backward kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_BWD_LIB_NAME)
+def set_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the backward library's entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lstm_seq_bwd.argtypes = [vp] * 10 + [ci] * 6 + [vp]
     lib.lstm_seq_bwd.restype = ci
@@ -139,7 +138,21 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.lstm_seq_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.lstm_seq_bwd_units_per_block.argtypes = [ci, ci]
     lib.lstm_seq_bwd_units_per_block.restype = ci
+    lib.lstm_seq_bwd_cluster.argtypes = [vp] * 11 + [ci] * 5 + [vp]
+    lib.lstm_seq_bwd_cluster.restype = ci
+    lib.lstm_seq_bwd_cluster_serves.argtypes = [ci, ci]
+    lib.lstm_seq_bwd_cluster_serves.restype = ci
+    lib.lstm_seq_bwd_cluster_smem_bytes.argtypes = [ci, ci, ci]
+    lib.lstm_seq_bwd_cluster_smem_bytes.restype = ctypes.c_size_t
+    lib.lstm_seq_bwd_cluster_active.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.lstm_seq_bwd_cluster_active.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernel's library (built on first use) with its C signatures."""
+    return set_bwd_signatures(_build.load(_BWD_LIB_NAME))
 
 
 def _lstm_seq_fwd_impl(x_proj_t, w_hh, h0, c0, compute_bf16):
@@ -192,33 +205,133 @@ lstm_seq_fwd.launches = 0
 def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
     """The backward (``lstm_seq_bwd_reference``'s contract).
 
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``lstm_seq_bwd.launches``; CPU tensors run the plain version."""
+    CUDA tensors (contiguous) launch the kernel of ``lstm_seq_bwd_route``
+    once and add one to ``lstm_seq_bwd.launches`` and to
+    ``lstm_seq_bwd.route_launches[route]``; CPU tensors run the plain
+    version."""
     if gates.device.type == "cpu":
         return lstm_seq_bwd_reference(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16)
     _check_bwd_args(gates, cseq, cprev, w_hh, dout, dhT, dcT)
     _build.check_cuda("lstm_seq_bwd", (gates, cseq, cprev, w_hh, dout, dhT, dcT))
     T, B, G = gates.shape
-    H = G // 4
-    units = _bwd_units(H, gates.device)
-    if not units:
-        raise ValueError(f"lstm_seq_bwd: hidden size {H} needs more blocks than the card has SMs")
-    dxp = torch.empty_like(gates)
-    dh0 = torch.empty(B, H, dtype=torch.float32, device=gates.device)
-    dc0 = torch.empty_like(dh0)
-    _build.launch(_bwd_lib(), "lstm_seq_bwd", "lstm_seq_bwd",
-                  (gates, cseq, cprev, w_hh, dout, dhT, dcT, dxp, dh0, dc0),
-                  (T, B, H, units, int(compute_bf16)))
-    lstm_seq_bwd.launches += 1
-    return dxp, dh0, dc0
+    route = lstm_seq_bwd_route(G // 4, B, gates.device)
+    return launch_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16, route)
 
 
 lstm_seq_bwd.launches = 0
+lstm_seq_bwd.route_launches = {"cluster": 0, "direct": 0}
+
+# The cluster route (csrc/lstm_seq_bwd.cu, namespace cluster_route): the
+# shape of its clusters and blocks.
+CLUSTER_BLOCKS = 8                 # blocks per cluster (kQ)
+_CLUSTER_UNITS = 8                 # hidden units whose cells a block runs
+_CLUSTER_MAX_BATCH = 256
+_CLUSTER_MAX_HIDDEN = 512
+_CLUSTER_MIN_SMEM = 120 * 1024     # one block per SM
+_CLUSTER_MAX_SLICE = 256           # gate rows of a block's slice, 4H / 8
+
+
+class CardProps(NamedTuple):
+    """What the backward's route depends on, of one card: its SMs, the
+    opt-in shared memory of a block, and the clusters of 8 cluster-route
+    blocks the card holds at once."""
+    sms: int
+    smem_optin: int
+    active_clusters: int
+
+
+def cluster_smem_bytes(hidden: int, batch: int, compute_bf16: bool) -> int:
+    """Dynamic shared memory of one cluster-route block (``smem_bytes`` in
+    the source): two m16 row tiles of the gate slice, the k shares of two
+    tiles, the two parities of the partials pushed by the cluster's 8
+    blocks, and the staged inputs of the block's cells; at least
+    ``_CLUSTER_MIN_SMEM``."""
+    q = CLUSTER_BLOCKS
+    cols = _CLUSTER_UNITS * q
+    warps_k = 8 // (cols // 32)
+    tiles = 2 * 16 * (4 * hidden // q + (8 if compute_bf16 else 4))
+    shares = 2 * warps_k * 16 * (cols + 8)
+    recv = 2 * q * -(-batch // 16) * 16 * _CLUSTER_UNITS
+    cells = 7 * -(-batch // 32) * 256
+    return max(4 * (tiles + shares + recv + cells), _CLUSTER_MIN_SMEM)
+
+
+def cluster_serves(hidden: int, batch: int, props: CardProps) -> bool:
+    """Whether the cluster route serves hidden size ``hidden`` and batch
+    ``batch`` on a card of ``props``: 128 <= H <= 512 with H % 128 == 0 (a
+    warp's k range, H / 8 gate rows, is whole k16 slices; its weight
+    fragments are sized for H <= 512) and 1 <= B <= 256 (its cells per
+    thread), with the H / 64 clusters co-resident at one block per SM and
+    the shared memory of the batch (in bf16, the larger) within the card's
+    (B <= 208 at H = 512)."""
+    clusters = hidden // (_CLUSTER_UNITS * CLUSTER_BLOCKS)
+    return (128 <= hidden <= _CLUSTER_MAX_HIDDEN and hidden % 128 == 0
+            and 1 <= batch <= _CLUSTER_MAX_BATCH
+            and 4 * hidden // CLUSTER_BLOCKS <= _CLUSTER_MAX_SLICE
+            and clusters * CLUSTER_BLOCKS <= props.sms and props.active_clusters >= clusters
+            and cluster_smem_bytes(hidden, batch, True) <= props.smem_optin)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_props(index: int) -> CardProps:
+    n = ctypes.c_int(0)
+    lib = _bwd_lib()
+    err = lib.lstm_seq_bwd_cluster_active(index, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_bwd: cudaOccupancyMaxActiveClusters failed: "
+                           f"{lib.s2vt_cuda_error_string(err).decode()} (cudaError {err})")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return CardProps(sms, _build.smem_optin(torch.device("cuda", index)), n.value)
+
+
+def card_props(device) -> CardProps:
+    """``CardProps`` of card ``device``, read once per card."""
+    device = torch.device(device)
+    return _card_props(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def lstm_seq_bwd_route(hidden: int, batch: int, device) -> str:
+    """The kernel that serves hidden size ``hidden`` and batch ``batch`` on
+    ``device`` (a card, or its ``CardProps``): "cluster" where
+    ``cluster_serves`` (H = 512 at every batch up to 208 on an H100), else
+    "direct" (the grid-synchronised kernel on the CUDA cores). Chosen before
+    the launch, from the shapes and the card alone."""
+    props = device if isinstance(device, CardProps) else card_props(device)
+    return "cluster" if cluster_serves(hidden, batch, props) else "direct"
+
+
+def launch_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16, route, lib=None):
+    """One launch of ``route``'s kernel on CUDA tensors checked by the
+    caller (or, to time one route beside the other, by chip_smoke.py and
+    the variant tool, which may pass its own build as ``lib``)."""
+    T, B, G = gates.shape
+    H = G // 4
+    dev = gates.device
+    dxp = torch.empty_like(gates)
+    dh0 = torch.empty(B, H, dtype=torch.float32, device=dev)
+    dc0 = torch.empty_like(dh0)
+    outs = (gates, cseq, cprev, w_hh, dout, dhT, dcT, dxp, dh0, dc0)
+    if route == "cluster":
+        # This launch's exchange: gate gradients tagged with their step, by
+        # step parity; zeros tag nothing.
+        xch = torch.zeros(2 * B * G, dtype=torch.int64, device=dev)
+        _build.launch(lib or _bwd_lib(), "lstm_seq_bwd_cluster", "lstm_seq_bwd",
+                      outs + (xch,), (T, B, H, int(compute_bf16)))
+    else:
+        units = _bwd_units(H, dev)
+        if not units:
+            raise ValueError(f"lstm_seq_bwd: hidden size {H} needs more blocks than the card "
+                             "has SMs")
+        _build.launch(lib or _bwd_lib(), "lstm_seq_bwd", "lstm_seq_bwd", outs,
+                      (T, B, H, units, int(compute_bf16)))
+    lstm_seq_bwd.launches += 1
+    lstm_seq_bwd.route_launches[route] += 1
+    return dxp, dh0, dc0
 
 
 def _bwd_units(hidden: int, device: torch.device) -> int:
-    """Hidden units per block of the backward kernel on ``device`` (0: none
-    of its instantiations keeps one block per SM)."""
+    """Hidden units per block of the direct route on ``device`` (0: none of
+    its instantiations keeps one block per SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return _bwd_lib().lstm_seq_bwd_units_per_block(hidden, sms)
 
