@@ -13,11 +13,12 @@ Phases; a failure in any of them exits non-zero before the result line:
               fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
               sequence kernels at T = L = 80 (beam encode) and T = 159
               (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
-              times beside the bound. The LSTM backward has two routes
-              (lstm_seq_bwd_route: "cluster" at H = 512, "direct"): each
-              check call's route is printed and its launch held to it, the
-              direct route is checked on the same inputs (its launch held to
-              it too) and timed beside the routed kernel, in turns.
+              times beside the bound. The LSTM forward and backward have two
+              routes each (lstm_seq_fwd_route: "mma" or "direct";
+              lstm_seq_bwd_route: "cluster" in bf16, "direct"): each check
+              call's route is printed and its launch held to it, the other
+              route is checked on the same inputs (its launch held to it too)
+              and timed beside the routed kernel, in turns.
   3. slice    greedy_eval -> model_from_checkpoint on a corpus and a
               checkpoint made from --seed at H = E = 512, F = 4096, L = 80
               (the serving path; the kernel launch counts are read around it),
@@ -32,16 +33,18 @@ Phases; a failure in any of them exits non-zero before the result line:
               times.
   5. beam     beam_eval -> model_from_checkpoint on the corpus and checkpoint
               of phase 3 at B = 16, width 3, depth 30 (the beam slice's main
-              path; launch counts read around it) against the plain route,
+              path; launch counts read around it, each LSTM forward launch
+              held to the route its wrapper takes) against the plain route,
               then S2VT.beam at V = 10240, B in {16, 96}, float32 and bf16.
   6. train2   phase 4 with --num_layers 2: each layer of both RNNs runs the
-              per-layer sequence kernels, every LSTM backward launch on its
-              "cluster" route; train-step times at B = 16 only.
+              per-layer sequence kernels, every launch of them on the route
+              its wrapper takes (float32 at B = 16); train-step times at
+              B = 16 only, with each kernel's device time in the step.
   7. att      the attention baseline: cli.train --model att_baseline on the
               corpus of phase 4 (launch counts read around it: the
               attention-decoder kernel runs the no-gradient validation pass,
-              the sequence kernels the bi-LSTM encoder, every backward launch
-              on its "cluster" route), greedy_eval and
+              the sequence kernels the bi-LSTM encoder, every launch of them
+              on the route its wrapper takes), greedy_eval and
               beam_eval of its final checkpoint against the plain route, the
               kernel routes against the plain routes on one batch, and
               teacher-forced, train-step, greedy and beam times.
@@ -58,7 +61,8 @@ Phases; a failure in any of them exits non-zero before the result line:
               artifact at B = 16; ServingCaptioner.caption (launch counts read
               around each request: greedy runs the fused forward once and the
               out-projection-and-argmax kernel once per decode step, beam the
-              sequence kernel twice) against S2VT.greedy / S2VT.beam on the
+              sequence kernel twice, on its route) against S2VT.greedy /
+              S2VT.beam on the
               kernel route; request times and decode_tokens_timed phases.
  10. extract  FeatureExtractor("vgg16_bn") and ("vgg16") over seeded uint8
               clips of 80 frames of 300 x 400 (one fused conv kernel launch per
@@ -164,7 +168,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # Kernel #9's launches per VGG16 forward on each of its routes.
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
-ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_bwd")
+ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd")
 
 
 def card_line() -> str:
@@ -232,11 +236,18 @@ def fused_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
     return _bound(nbytes, flops, dtype_name)
 
 
-def seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
-    """Least time for the per-layer forward: x_proj [T, B, 4H], W_hh and
-    h0, c0 read once; the h, gate and c sequences and hT, cT written once,
-    all float32; against the 2*T*B*4H*H operations of the recurrent product
-    at the peak rate of its operand type (bf16 operands in bf16 mode)."""
+def seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "direct"):
+    """Least time for the per-layer forward on ``route``: x_proj [T, B, 4H],
+    W_hh and h0, c0 read once; the h, gate and c sequences and hT, cT
+    written once, all float32; against the 2*T*B*4H*H operations of the
+    recurrent product at the peak rate of its operand type (bf16 operands
+    in bf16 mode, on the tensor cores on the "mma" route). Float32 runs on
+    the CUDA cores on both routes (the "mma" route forms its sums in the
+    direct route's order), so both have the float32 peak's bound; a float32
+    mma route as three TF32 passes (the variant tool's ``tf32x3``) would
+    have 3 x the operations at the TF32 peak. Returns (ms, by, bytes, the
+    2*T*B*4H*H operations)."""
+    assert route in ("mma", "direct"), route
     G = 4 * hid
     nbytes = 4 * (T * B * G + G * hid + 2 * B * hid            # x_proj, W_hh, h0, c0
                   + T * B * G + 2 * T * B * hid + 2 * B * hid)  # gates; h, c seqs; hT, cT
@@ -555,11 +566,35 @@ def seq_bwd_inputs(torch, cell, args, got, device, gen):
     return (got[1], got[2], cprev, args[1], *grads), hprev
 
 
+# The two routes of each routed sequence kernel: (its route function, the
+# launcher of one route by name, the routes).
+SEQ_ROUTES = {"lstm_seq_fwd": ("lstm_seq_fwd_route", "launch_fwd", ("mma", "direct")),
+              "lstm_seq_bwd": ("lstm_seq_bwd_route", "launch_bwd", ("cluster", "direct"))}
+
+
+def seq_route(name: str, hid: int, B: int, bf16: bool, device) -> str:
+    """The route ``name``'s wrapper takes for (H, B, mode) on ``device``."""
+    return getattr(_module(name), SEQ_ROUTES[name][0])(hid, B, bf16, device)
+
+
+def launch_route(name: str, args, bf16: bool, route: str):
+    """One launch of ``route`` of the routed sequence kernel ``name``, its
+    outputs in the wrapper's form."""
+    got = getattr(_module(name), SEQ_ROUTES[name][1])(*args, bf16, route)
+    if name == "lstm_seq_fwd":
+        outs, gates, cseq, fin = got
+        return outs, gates, cseq, fin[0], fin[1]
+    return got
+
+
 def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, cell="lstm"):
     """The per-layer LSTM (or GRU) sequence kernels against their plain
     versions at every T, batch and mode (float32, and bf16 product operands);
     times at ``timed``. The backward's inputs come from the forward kernel's
-    run, so its gates are real states."""
+    run, so its gates are real states. The LSTM kernels have two routes
+    each: every check call's route is printed and its launch held to it,
+    the other route is checked on the same inputs, and both are timed in
+    turns (routed, other, other, routed)."""
     fwd_name, bwd_name, _, cudnn_cell = SEQ_CELLS[cell]
     mod = _module(fwd_name)
     fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
@@ -568,35 +603,43 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
               bwd_name: gru_seq_bwd_bound_ms if cell == "gru" else seq_bwd_bound_ms}
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(4321 if cell == "lstm" else 8642)
+    routed = cell == "lstm" and device.type == "cuda"
     errors, times = {}, {}
+
+    def checked(kernel, fn, ref, fargs, B, name, T):
+        """The wrapper's call against the plain version; on a routed kernel
+        its route held, then the other route on the same inputs. Returns
+        (outputs, route)."""
+        bf16 = name == "bfloat16"
+        before = read_routes(kernel) if routed else None
+        got = fn(*fargs, bf16)
+        sync()
+        want = ref(*fargs, bf16)
+        _check(torch, kernel, B, name, hid, T, got, want, errors, SEQ_ATOL)
+        if not routed:
+            return got, None
+        route = seq_route(kernel, hid, B, bf16, device)
+        print(f"kernel {kernel} B={B} {name} T={T}: route {route}", flush=True)
+        held_to_route(kernel, before, route, f"B={B} {name} T={T}")
+        for other in SEQ_ROUTES[kernel][2]:
+            if other == route:
+                continue
+            before = read_routes(kernel)
+            got_other = launch_route(kernel, fargs, bf16, other)
+            sync()
+            held_to_route(kernel, before, other, f"B={B} {name} T={T} ({other})")
+            _check(torch, f"{kernel}[{other}]", B, name, hid, T, got_other, want, errors,
+                   SEQ_ATOL)
+        return got, route
+
     for T in seq_lens:
         for B in batches:
             for name in ("float32", "bfloat16"):
                 bf16 = name == "bfloat16"
                 args = seq_inputs(torch, cell, B, T, hid, device, gen)
-                got = fwd(*args, bf16)
-                sync()
-                _check(torch, fwd_name, B, name, hid, T, got, fwd_ref(*args, bf16), errors,
-                       SEQ_ATOL)
+                got, fwd_route = checked(fwd_name, fwd, fwd_ref, args, B, name, T)
                 bargs, hprev = seq_bwd_inputs(torch, cell, args, got, device, gen)
-                before = read_routes(bwd_name) if bwd_name in ROUTED else None
-                dxp = bwd(*bargs, bf16)
-                sync()
-                route = "direct"
-                if before is not None and device.type == "cuda":
-                    route = mod.lstm_seq_bwd_route(hid, B, device)
-                    print(f"kernel {bwd_name} B={B} {name} T={T}: route {route}", flush=True)
-                    held_to_route(bwd_name, before, route, f"B={B} {name} T={T}")
-                want = bwd_ref(*bargs, bf16)
-                _check(torch, bwd_name, B, name, hid, T, dxp, want, errors, SEQ_ATOL)
-                if route != "direct":
-                    # The direct route on the same inputs, held to the same bound.
-                    before = read_routes(bwd_name)
-                    got_direct = mod.launch_bwd(*bargs, bf16, "direct")
-                    sync()
-                    held_to_route(bwd_name, before, "direct", f"B={B} {name} T={T} (direct)")
-                    _check(torch, f"{bwd_name}[direct]", B, name, hid, T, got_direct, want,
-                           errors, SEQ_ATOL)
+                _, bwd_route = checked(bwd_name, bwd, bwd_ref, bargs, B, name, T)
                 if B not in timed:
                     continue
                 dtype = torch.bfloat16 if bf16 else torch.float32
@@ -613,41 +656,42 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
                     else:
                         hprev.reshape(-1, hid).T @ d[0].reshape(-1, 4 * hid)
 
-                for kernel, fn, ref, fargs, lib in ((fwd_name, fwd, fwd_ref, args, lib_fwd),
-                                                    (bwd_name, bwd, bwd_ref, bargs, lib_bwd)):
-                    routed = kernel == bwd_name and before is not None
-                    if routed:
-                        # The routed kernel and the direct route in turns:
-                        # routed, direct, direct, routed.
-                        def direct():
-                            mod.launch_bwd(*fargs, bf16, "direct")
+                for kernel, fn, ref, fargs, lib, route in (
+                        (fwd_name, fwd, fwd_ref, args, lib_fwd, fwd_route),
+                        (bwd_name, bwd, bwd_ref, bargs, lib_bwd, bwd_route)):
+                    route_note = ""
+                    if route is not None:
+                        # The routed kernel and its other route in turns:
+                        # routed, other, other, routed.
+                        other = next(r for r in SEQ_ROUTES[kernel][2] if r != route)
+
+                        def other_fn(kernel=kernel, fargs=fargs, other=other):
+                            launch_route(kernel, fargs, bf16, other)
                         turns = [cuda_ms(torch, f, reps) for f in
-                                 (lambda: fn(*fargs, bf16), direct, direct,
+                                 (lambda: fn(*fargs, bf16), other_fn, other_fn,
                                   lambda: fn(*fargs, bf16))]
-                        k_ms, d_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                        k_ms, o_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                        bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name, route)
                     else:
                         k_ms = cuda_ms(torch, lambda: fn(*fargs, bf16), reps)
-                    p_ms = cuda_ms(torch, lambda: ref(*fargs, bf16), max(1, reps // 5), warmup=1)
-                    if routed:
-                        bound, bound_by, nbytes, flops = seq_bwd_bound_ms(B, T, hid, name, route)
-                    else:
                         bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name)
+                    p_ms = cuda_ms(torch, lambda: ref(*fargs, bf16), max(1, reps // 5), warmup=1)
                     extra, steps = {}, T
                     if kernel == bwd_name:
                         extra["with_dw_ms"] = cuda_ms(torch, bwd_and_dw, reps)
                         steps = T + 1                      # iterations of the reverse sweep
+                    unit = "iteration" if kernel == bwd_name else "step"
                     times[(kernel, B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib,
                                                        bound_ms=bound, bound_by=bound_by, **extra)
-                    route_note = ""
-                    if routed:
-                        d_bound = seq_bwd_bound_ms(B, T, hid, name, "direct")[0]
-                        times[(kernel, B, name, T)].update(route=route, direct_ms=d_ms)
-                        route_note = (f"route={route} direct_route_ms={d_ms:.4f} "
-                                      f"({d_ms / steps * 1e3:.2f} us per iteration; bound "
-                                      f"{d_bound:.4f}, share {d_bound / d_ms:.4f}) ")
+                    if route is not None:
+                        o_bound = bounds[kernel](B, T, hid, name, other)[0]
+                        times[(kernel, B, name, T)].update(route=route, other_route=other,
+                                                           other_ms=o_ms, other_bound_ms=o_bound)
+                        route_note = (f"route={route} {other}_route_ms={o_ms:.4f} "
+                                      f"({o_ms / steps * 1e3:.2f} us per {unit}; bound "
+                                      f"{o_bound:.4f}, share {o_bound / o_ms:.4f}) ")
                     print(f"time {kernel} B={B} T={T} {name}: kernel_ms={k_ms:.4f} "
-                          f"({k_ms / steps * 1e3:.2f} us per "
-                          f"{'iteration' if kernel == bwd_name else 'step'}) " + route_note
+                          f"({k_ms / steps * 1e3:.2f} us per {unit}) " + route_note
                           + "".join(f"kernel_plus_dW_ms={v:.4f} " for v in extra.values())
                           + f"plain_ms={p_ms:.4f} library_ms={lib:.4f} "
                           f"({'cuDNN fwd+bwd less fwd' if extra else 'cuDNN fwd'}) "
@@ -1081,9 +1125,10 @@ def phase_slice(torch, device, ckpt, seed, hid, feat, length, vocab, batches, re
 
 def phase_beam(torch, device, ckpt, seed, hid, feat, length, vocab, batches, reps, card):
     """The beam slice's main path: beam_eval over the serving checkpoint's
-    test split, launch counts read around it, sentences against the plain
-    route; then S2VT.beam kernel vs plain and its request times. Returns the
-    sequence forward kernel's launches in the main-path run."""
+    test split, launch counts read around it and every sequence-kernel
+    launch held to its route, sentences against the plain route; then
+    S2VT.beam kernel vs plain and its request times. Returns the sequence
+    forward kernel's launches in the main-path run and its route counts."""
     from s2vt_tpu_torch.evaluation.decode import beam_eval
     from s2vt_tpu_torch.models import S2VT
 
@@ -1097,6 +1142,7 @@ def phase_beam(torch, device, ckpt, seed, hid, feat, length, vocab, batches, rep
     sync()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    routes = {k: read_routes(k) for k in SEQ_ROUTES}
     with plain_kernels():
         plain_preds = beam_eval(ckpt, **kw)
     n_batches = -(-len(preds) // MAIN_BATCH)
@@ -1109,6 +1155,13 @@ def phase_beam(torch, device, ckpt, seed, hid, feat, length, vocab, batches, rep
     if launches != want:
         raise SystemExit(f"beam_eval launched {launches} for {n_batches} requests, not {want} "
                          "(vid_rnn and word_rnn, one sequence kernel each)")
+    per_request = s2vt_launches("lstm", 1, length)[3]["lstm_seq_fwd"]
+    per_batch = {}
+    for b0 in range(0, len(preds), MAIN_BATCH):
+        b = min(MAIN_BATCH, len(preds) - b0)
+        per_batch[b] = per_batch.get(b, 0) + per_request
+    hold_seq_routes(routes, {"lstm_seq_fwd": per_batch, "lstm_seq_bwd": {}}, device,
+                    "beam beam_eval", card, hid)
     if not preds or not all(isinstance(s, str) and s for s in preds.values()):
         raise SystemExit(f"beam_eval returned no or empty captions: {preds}")
     if same < ROW_MATCH_MIN_F32:
@@ -1144,7 +1197,7 @@ def phase_beam(torch, device, ckpt, seed, hid, feat, length, vocab, batches, rep
             if device.type == "cuda" and B == MAIN_BATCH:
                 profile_call(torch, lambda: model.beam(feats, BEAM_WIDTH, BEAM_DEPTH), med * 1e3,
                              f"S2VT.beam B={B} {name}", card)
-    return launches["lstm_seq_fwd"]
+    return launches["lstm_seq_fwd"], routes["lstm_seq_fwd"]
 
 
 def _random_batch(torch, B, length, feat, real_vocab, device, gen):
@@ -1227,15 +1280,22 @@ def s2vt_launches(rnn_type, num_layers, length=LENGTH):
             {seq_fwd: per_layer, **steps}, beam)
 
 
-def hold_cluster_routes(routes: dict, n: int, device, label: str, card: str) -> None:
-    """Phases 6 and 7: each of the main path's ``n`` launches of the LSTM
-    backward (H = 512, B = 16) on its "cluster" route, on the card."""
-    if device.type != "cuda" or not n:
+def hold_seq_routes(routes: dict, per_batch: dict, device, label: str, card: str,
+                    hid: int = H, bf16: bool = False) -> None:
+    """Phases 5, 6, 7 and 9: each launch of the LSTM sequence kernels on the
+    route its wrapper takes for that batch and mode. ``routes`` holds each
+    kernel's route counts of the run, ``per_batch`` {kernel: {B: launches at
+    that B}}."""
+    if device.type != "cuda":
         return
-    print(f"{label}: lstm_seq_bwd route launches {routes} [{card}]", flush=True)
-    if routes != {"cluster": n, "direct": 0}:
-        raise SystemExit(f"{label}: lstm_seq_bwd launched {routes}, not {n} times on its "
-                         "cluster route")
+    print(f"{label}: sequence kernel route launches {routes} [{card}]", flush=True)
+    for name, counts in per_batch.items():
+        want = dict.fromkeys(SEQ_ROUTES[name][2], 0)
+        for B, n in counts.items():
+            want[seq_route(name, hid, B, bf16, device)] += n
+        if routes[name] != want:
+            raise SystemExit(f"{label}: {name} launched {routes[name]}, not {want} (the routes "
+                             f"{SEQ_ROUTES[name][0]} names)")
 
 
 def expect(**per_unit) -> dict:
@@ -1271,7 +1331,8 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         trainer = train_cli.main(argv)
         sync()
         wall = time.perf_counter() - t0
-        launches, routes = read_launches(), read_routes("lstm_seq_bwd")
+        launches = read_launches()
+        routes = {k: read_routes(k) for k in SEQ_ROUTES}
         hist = trainer.history
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
@@ -1286,8 +1347,10 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         if launches != want:
             raise SystemExit(f"the {rnn_type} training path ({num_layers} layers) launched "
                              f"{launches}, not {want}")
-        hold_cluster_routes(routes, launches["lstm_seq_bwd"], device,
-                            f"{rnn_type} {num_layers}-layer training", card)
+        if n_train % MAIN_BATCH or n_valid % MAIN_BATCH:
+            raise SystemExit(f"the corpus splits ({n_train}, {n_valid}) are not whole batches")
+        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]} for k in SEQ_ROUTES}, device,
+                        f"{rnn_type} {num_layers}-layer training", card, hid)
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"training losses missing or not finite: {hist}")
@@ -1414,7 +1477,8 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
         trainer = train_cli.main(argv)
         sync()
         wall = time.perf_counter() - t0
-        launches, routes = read_launches(), read_routes("lstm_seq_bwd")
+        launches = read_launches()
+        routes = {k: read_routes(k) for k in SEQ_ROUTES}
         hist = trainer.history
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
@@ -1428,7 +1492,10 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
                       valid=({"lstm_seq_fwd": 2, "att_decode_fwd": 1}, valid_steps))
         if launches != want:
             raise SystemExit(f"the attention training path launched {launches}, not {want}")
-        hold_cluster_routes(routes, launches["lstm_seq_bwd"], device, "att training", card)
+        if n_train % MAIN_BATCH or n_valid % MAIN_BATCH:
+            raise SystemExit(f"the corpus splits ({n_train}, {n_valid}) are not whole batches")
+        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]} for k in SEQ_ROUTES}, device,
+                        "att training", card, hid)
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"training losses missing or not finite: {hist}")
@@ -1547,6 +1614,7 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         sync()
         wall = time.perf_counter() - t0
         launches, routes = read_launches(), read_routes("argmax_linear")
+        seq_routes = {k: read_routes(k) for k in SEQ_ROUTES}
         x = payloads[dtype].to(device)
         want = sentences(model.greedy(x) if mode == "greedy"
                          else model.beam(x, BEAM_WIDTH, depth).tokens[:, 0])
@@ -1566,6 +1634,8 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         if routes != {"mma": launches["argmax_linear"], "direct": 0}:
             raise SystemExit(f"the {mode} {dtype} artifact's #8 launches took the routes "
                              f"{routes}, not all the mma route")
+        hold_seq_routes(seq_routes, {k: {batch: launches[k]} for k in SEQ_ROUTES}, device,
+                        f"serving {mode} artifact feats={dtype}", card, opt.dim_hidden)
         if same < 1.0 or len(got) != batch:
             raise SystemExit(f"the {mode} {dtype} artifact's sentences differ from the model's: "
                              f"{got} vs {want}")
@@ -1742,8 +1812,8 @@ def main() -> int:
         phase_slice(torch, device, ckpt, args.seed, H, FEAT, LENGTH, VOCAB,
                     batches=TIMED_BATCHES, reps=5, card=card)
         # 5. the beam slice: its main path
-        beam_launches = phase_beam(torch, device, ckpt, args.seed, H, FEAT, LENGTH, VOCAB,
-                                   batches=TIMED_BATCHES, reps=5, card=card)
+        beam_launches, beam_routes = phase_beam(torch, device, ckpt, args.seed, H, FEAT, LENGTH,
+                                                VOCAB, batches=TIMED_BATCHES, reps=5, card=card)
         stamp("phases 3 and 5")
         # 9. serving artifacts of the same checkpoint: kernel #8's main path
         serve_launches, serve_routes, greedy_artifact = phase_serving(
@@ -1801,8 +1871,10 @@ def main() -> int:
             rows[-1]["route_launches"] = caption_routes
         if name == "argmax_linear":
             rows[-1]["route_launches"] = serve_routes
+        if name == "lstm_seq_fwd":
+            rows[-1]["route_launches"] = beam_routes
         if name == "lstm_seq_bwd":
-            rows[-1]["route_launches"] = routes2
+            rows[-1]["route_launches"] = routes2["lstm_seq_bwd"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

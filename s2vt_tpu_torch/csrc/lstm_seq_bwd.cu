@@ -65,6 +65,7 @@
 #include <cstdio>
 
 #include "common.cuh"
+#include "exchange.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -304,9 +305,6 @@ constexpr int kMaxPairs = kMaxSlice / 2 / kRowThreads;   // 2-word loads per thr
 constexpr int kInputs = 7;                       // cell inputs: gates i f g o, c, c_prev, dout
 constexpr size_t kMinSmem = 120 * 1024;          // more than half an SM's: one block per SM
 constexpr int kQ = 8;                            // blocks per cluster
-// Wall time (ns) a poll waits before it traps: far beyond any exchange, even
-// with the card time-sliced between contexts.
-constexpr unsigned long long kSpinLimitNs = 5000000000ull;
 
 template <int kBf16>
 struct Tile {
@@ -336,51 +334,9 @@ size_t smem_bytes(int H, int B) {
   return bytes > kMinSmem ? bytes : kMinSmem;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {   // lo in the low half
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// v = big + small for 3xTF32, big passed whole: the tensor cores read its
-// upper 19 bits (a truncation), and small = v - trunc(v) is exact in float32
-// (its own truncation costs ~2^-21 of v). Two operations, where mma.cuh's
-// rounded split takes three.
-__device__ __forceinline__ void split_trunc(float v, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(v);
-  small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u));
-}
-
-// 4 bytes from global to shared, through L1 (the cell inputs are read once).
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
-}
-
-// An exchange word: the value's bits low, its tag (step + 1) high. Stored
-// and polled with relaxed gpu-scope accesses (8 bytes each, single-copy
-// atomic; CUB's decoupled look-back polls its tagged words the same way).
-__device__ __forceinline__ void st_word(unsigned long long* p, float v, unsigned tag) {
-  const unsigned long long x = ((unsigned long long)tag << 32) | __float_as_uint(v);
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(x) : "memory");
-}
-__device__ __forceinline__ void ld_words(unsigned long long (&v)[2], const unsigned long long* p) {
-  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];\n"
-               : "=l"(v[0]), "=l"(v[1])
-               : "l"(p)
-               : "memory");
-}
-__device__ __forceinline__ bool tagged(const unsigned long long (&v)[2], unsigned tag) {
-  return (unsigned)(v[0] >> 32) == tag && (unsigned)(v[1] >> 32) == tag;
-}
-
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(ns));
-  return ns;
 }
 
 __device__ __noinline__ void poll_trap(unsigned long long waited, int step, int row) {

@@ -1,10 +1,13 @@
 // Tensor-core helpers shared by the port's mma.sync kernels (the "mma" routes
-// of conv3x3_bn_relu.cu and argmax_linear.cu): 16-byte cp.async copies into
-// a ring in shared memory, ldmatrix fragment loads, the bf16 and TF32
-// mma.sync products, and the split of a float32 into two TF32 operands for
-// 3xTF32 products. _build.py hashes this file into every library's name.
+// of conv3x3_bn_relu.cu, argmax_linear.cu and lstm_seq_fwd.cu, the "cluster"
+// route of lstm_seq_bwd.cu): 16-byte cp.async copies into a ring in shared
+// memory, ldmatrix fragment loads, the bf16 and TF32 mma.sync products, bf16
+// pairs, and the splits of a float32 into two TF32 operands for 3xTF32
+// products. _build.py hashes this file into every library's name.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -17,9 +20,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -60,4 +68,18 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
 __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
   big = tf32_rna(v);
   small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// v = big + small for 3xTF32, big passed whole: the tensor cores read its
+// upper 19 bits (a truncation), and small = v - trunc(v) is exact in float32
+// (its own truncation costs ~2^-21 of v). Two operations, where the rounded
+// split above takes three.
+__device__ __forceinline__ void split_trunc(float v, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(v);
+  small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {   // lo in the low half
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
 }

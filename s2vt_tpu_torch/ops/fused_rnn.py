@@ -21,8 +21,10 @@ float32 matrix product outside the kernel (``pallas_rnn.py:295-298``).
 (``csrc/lstm_seq_fwd.cu``, ``csrc/lstm_seq_bwd.cu``) for CUDA tensors and run
 ``lstm_seq_fwd_reference`` / ``lstm_seq_bwd_reference``, the same recurrences
 in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception. The backward has two kernels, its "cluster" and "direct" routes,
-and ``lstm_seq_bwd_route`` picks one from the shapes and the card.
+exception. Each has two kernels: the forward its "mma" and "direct" routes,
+picked by ``lstm_seq_fwd_route``, the backward its "cluster" and "direct"
+routes, picked by ``lstm_seq_bwd_route``, each from the shapes, the mode and
+the card before the launch.
 """
 
 from __future__ import annotations
@@ -117,16 +119,24 @@ def lstm_seq_bwd_reference(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf1
     return dxp, dh, dc
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_lib() -> ctypes.CDLL:
-    """The forward kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_FWD_LIB_NAME)
+def set_fwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the forward library's entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lstm_seq_fwd.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.lstm_seq_fwd.restype = ci
     lib.lstm_seq_fwd_smem_bytes.argtypes = [ci, ci]
     lib.lstm_seq_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.lstm_seq_fwd_mma.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+    lib.lstm_seq_fwd_mma.restype = ci
+    lib.lstm_seq_fwd_mma_smem_bytes.argtypes = [ci] * 4
+    lib.lstm_seq_fwd_mma_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib() -> ctypes.CDLL:
+    """The forward kernel's library (built on first use) with its C signatures."""
+    return set_fwd_signatures(_build.load(_FWD_LIB_NAME))
 
 
 def set_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -163,18 +173,8 @@ def _lstm_seq_fwd_impl(x_proj_t, w_hh, h0, c0, compute_bf16):
     _check_fwd_args(x_proj_t, w_hh, h0, c0)
     _build.check_cuda("lstm_seq_fwd", (x_proj_t, w_hh, h0, c0))
     T, B, G = x_proj_t.shape
-    H = G // 4
-    dev = x_proj_t.device
-    outs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    cseq = torch.empty_like(outs)
-    gates = torch.empty_like(x_proj_t)
-    fin = torch.empty(2, B, H, dtype=torch.float32, device=dev)
-    units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
-    _build.launch(_fwd_lib(), "lstm_seq_fwd", "lstm_seq_fwd",
-                  (x_proj_t, w_hh, h0, c0, outs, gates, cseq, fin),
-                  (T, B, H, units, int(compute_bf16)))
-    lstm_seq_fwd.launches += 1
-    return outs, gates, cseq, fin
+    route = lstm_seq_fwd_route(G // 4, B, compute_bf16, x_proj_t.device)
+    return launch_fwd(x_proj_t, w_hh, h0, c0, compute_bf16, route)
 
 
 def _lstm_seq_fwd_fake(x_proj_t, w_hh, h0, c0, compute_bf16):
@@ -192,14 +192,17 @@ def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
     """The forward (``lstm_seq_fwd_reference``'s contract), a ``torch.library``
     operator so that an exported decode holds it.
 
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``lstm_seq_fwd.launches``; CPU tensors run the plain version."""
+    CUDA tensors (contiguous) launch the kernel of ``lstm_seq_fwd_route``
+    once and add one to ``lstm_seq_fwd.launches`` and to
+    ``lstm_seq_fwd.route_launches[route]``; CPU tensors run the plain
+    version."""
     _build.check_device("lstm_seq_fwd", x_proj_t)
     outs, gates, cseq, fin = _lstm_seq_fwd_op(x_proj_t, w_hh, h0, c0, compute_bf16)
     return outs, gates, cseq, fin[0], fin[1]
 
 
 lstm_seq_fwd.launches = 0
+lstm_seq_fwd.route_launches = {"mma": 0, "direct": 0}
 
 
 def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
@@ -214,7 +217,7 @@ def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
     _check_bwd_args(gates, cseq, cprev, w_hh, dout, dhT, dcT)
     _build.check_cuda("lstm_seq_bwd", (gates, cseq, cprev, w_hh, dout, dhT, dcT))
     T, B, G = gates.shape
-    route = lstm_seq_bwd_route(G // 4, B, gates.device)
+    route = lstm_seq_bwd_route(G // 4, B, compute_bf16, gates.device)
     return launch_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16, route)
 
 
@@ -232,9 +235,9 @@ _CLUSTER_MAX_SLICE = 256           # gate rows of a block's slice, 4H / 8
 
 
 class CardProps(NamedTuple):
-    """What the backward's route depends on, of one card: its SMs, the
-    opt-in shared memory of a block, and the clusters of 8 cluster-route
-    blocks the card holds at once."""
+    """What the routes depend on, of one card: its SMs, the opt-in shared
+    memory of a block, and the clusters of 8 cluster-route blocks (of the
+    backward) the card holds at once."""
     sms: int
     smem_optin: int
     active_clusters: int
@@ -290,12 +293,20 @@ def card_props(device) -> CardProps:
     return _card_props(device.index if device.index is not None else torch.cuda.current_device())
 
 
-def lstm_seq_bwd_route(hidden: int, batch: int, device) -> str:
-    """The kernel that serves hidden size ``hidden`` and batch ``batch`` on
-    ``device`` (a card, or its ``CardProps``): "cluster" where
-    ``cluster_serves`` (H = 512 at every batch up to 208 on an H100), else
-    "direct" (the grid-synchronised kernel on the CUDA cores). Chosen before
-    the launch, from the shapes and the card alone."""
+def lstm_seq_bwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
+    mode ``compute_bf16`` on ``device`` (a card, or its ``CardProps``):
+    in bf16 "cluster" where ``cluster_serves`` (H = 512 at every batch up to
+    208 on an H100), else "direct" (the grid-synchronised kernel on the CUDA
+    cores). Float32 always takes "direct": on an NVIDIA H100 80GB HBM3 at
+    700 W the cluster route's three TF32 passes made it slower there at
+    every measured shape (H = 512: 0.7069 against 0.6480 ms at B = 16,
+    T = 159; 3.0059 against 2.7962 at B = 96; 0.3699 against 0.3218 at
+    B = 16, T = 80), and faster in bf16 (0.5645 against 0.7365 ms at B = 16,
+    T = 159; chip_smoke.py phase 2). Chosen before the launch, from the
+    shapes, the mode and the card alone."""
+    if not compute_bf16:
+        return "direct"
     props = device if isinstance(device, CardProps) else card_props(device)
     return "cluster" if cluster_serves(hidden, batch, props) else "direct"
 
@@ -334,6 +345,127 @@ def _bwd_units(hidden: int, device: torch.device) -> int:
     its instantiations keeps one block per SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return _bwd_lib().lstm_seq_bwd_units_per_block(hidden, sms)
+
+
+# The forward's "mma" route (csrc/lstm_seq_fwd.cu, namespace mma_route): its
+# blocks and what each holds.
+_MMA_UNITS = (4, 8, 16, 32)        # instantiated hidden units per block (U)
+_MMA_THREADS = 256
+_MMA_SLOTS = 16                    # (cell, gate) pairs a thread runs per step
+_MMA_MAX_TILES = 4                 # m16 row tiles staged per pass
+_MMA_MAX_HIDDEN = 512              # a lane's 16-byte exchange loads cover a row
+_MMA_MAX_BATCH = 128               # the largest batch it was measured faster at
+
+
+class MmaPlan(NamedTuple):
+    """How the mma route lays out one launch: ``groups`` batch groups of
+    ``rows`` rows (the last may hold fewer), each run by H / ``units``
+    blocks that own ``units`` hidden units each; a block stages ``tiles``
+    m16 row tiles of its group per pass, ``passes`` passes per step."""
+    units: int
+    groups: int
+    rows: int
+    tiles: int
+    passes: int
+
+
+def mma_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool) -> int:
+    """Dynamic shared memory of one mma-route block (``smem_bytes`` in the
+    source): the block's 4U gate rows of W_hh and ``tiles`` m16 tiles of h,
+    in the operand type with 16 bytes of padding per row, and the gate sums
+    (in bf16 one k share per warp of a column tile; float32 sums whole)."""
+    es, pad = (2, 8) if compute_bf16 else (4, 4)
+    n = 4 * units
+    n_tiles = n // 8
+    shares = 8 // (n_tiles // max(1, n_tiles // 8)) if compute_bf16 else 1
+    return (n + 16 * tiles) * (hidden + pad) * es + 4 * shares * 16 * tiles * (n + 4)
+
+
+def mma_plan(hidden: int, batch: int, compute_bf16: bool, props: CardProps,
+             units: Optional[int] = None) -> Optional[MmaPlan]:
+    """The mma route's layout for hidden size ``hidden`` and batch ``batch``
+    on a card of ``props``, or None where it does not serve: 128 <= H <=
+    512, H % 128 == 0. For each U (``units``, or each instantiated one) the
+    batch splits into as many groups as the card's SMs hold (G H / U <=
+    SMs), a block stages as many of its group's m16 tiles per pass as its
+    shared memory and its 16 pairs per thread allow; of these the plan with
+    the fewest padded products per block (m16 tiles per group x U), then
+    passes, then rows per group is chosen (on an NVIDIA H100 80GB HBM3 at H = 512,
+    tools/lstm_fwd_variants.py: U = 4 fastest at B = 16, U = 8 at B = 96 in
+    float32)."""
+    if not (128 <= hidden <= _MMA_MAX_HIDDEN and hidden % 128 == 0 and batch >= 1):
+        return None
+    plans = []
+    for u in (units,) if units else _MMA_UNITS:
+        groups = min(props.sms // (hidden // u), batch)
+        if u not in _MMA_UNITS or groups < 1:
+            continue
+        rows = -(-batch // groups)
+        groups = -(-batch // rows)
+        m_tiles = -(-rows // 16)
+        for tiles in range(min(m_tiles, _MMA_MAX_TILES), 0, -1):
+            passes = -(-m_tiles // tiles)
+            slots = passes * tiles * u // 4
+            if (slots <= _MMA_SLOTS
+                    and mma_smem_bytes(hidden, u, tiles, compute_bf16) <= props.smem_optin):
+                plans.append(MmaPlan(u, groups, rows, tiles, passes))
+                break
+    return min(plans, key=lambda p: (-(-p.rows // 16) * p.units, p.passes, p.rows),
+               default=None)
+
+
+def lstm_seq_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
+    mode ``compute_bf16`` on ``device`` (a card, or its ``CardProps``):
+    "mma" where ``mma_plan`` serves and B <= 128, else "direct" (the
+    grid-synchronised kernel on the CUDA cores). On an NVIDIA H100 80GB HBM3
+    at 700 W the mma route was faster at every measured batch up to 128, in
+    both modes, at T = 80 and 159 (tools/lstm_fwd_variants.py --route
+    sweep, H = 512, B in 1, 2, 4, 8, 16, 24, 32, 48, 64, 80, 96, 112, 128,
+    the two routes in turns): float32, T = 80, 0.2216 against 0.2929 ms at
+    B = 1, 0.3090 against 0.4159 at B = 16, 1.2661 against 2.2776 at B = 96,
+    1.5196 against 2.9958 at B = 128; at T = 159 0.6437 against 0.9295 at
+    B = 16 and 2.4872 against 4.5148 at B = 96 (the closest, B = 80: 2.8339
+    against 3.7976); bf16, T = 80, 0.2358 against 0.4311 at B = 16 and
+    0.6417 against 2.3189 at B = 96. Larger batches were not measured.
+    Chosen before the launch, from the shapes, the mode and the card
+    alone."""
+    if batch > _MMA_MAX_BATCH:
+        return "direct"
+    props = device if isinstance(device, CardProps) else card_props(device)
+    return "mma" if mma_plan(hidden, batch, compute_bf16, props) else "direct"
+
+
+def launch_fwd(x_proj_t, w_hh, h0, c0, compute_bf16, route, lib=None, plan=None):
+    """One launch of ``route``'s kernel on CUDA tensors checked by the
+    caller (or, to time one route beside the other, by chip_smoke.py and
+    the variant tool, which may pass its own build as ``lib`` and an mma
+    ``plan``). Returns (h seq, gates, c seq, fin = [hT, cT])."""
+    T, B, G = x_proj_t.shape
+    H = G // 4
+    dev = x_proj_t.device
+    outs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    cseq = torch.empty_like(outs)
+    gates = torch.empty_like(x_proj_t)
+    fin = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+    tensors = (x_proj_t, w_hh, h0, c0, outs, gates, cseq, fin)
+    if route == "mma":
+        plan = plan or mma_plan(H, B, compute_bf16, card_props(dev))
+        if plan is None:
+            raise ValueError(f"lstm_seq_fwd: the mma route does not serve H={H}, B={B}")
+        # This launch's exchange: h tagged with its step, by step parity (in
+        # bf16 two units per word); zeros tag nothing.
+        xch = torch.zeros(2 * B * (H // 2 if compute_bf16 else H), dtype=torch.int64,
+                          device=dev)
+        _build.launch(lib or _fwd_lib(), "lstm_seq_fwd_mma", "lstm_seq_fwd", tensors + (xch,),
+                      (T, B, H, plan.units, plan.groups, plan.tiles, int(compute_bf16)))
+    else:
+        units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
+        _build.launch(lib or _fwd_lib(), "lstm_seq_fwd", "lstm_seq_fwd", tensors,
+                      (T, B, H, units, int(compute_bf16)))
+    lstm_seq_fwd.launches += 1
+    lstm_seq_fwd.route_launches[route] += 1
+    return outs, gates, cseq, fin
 
 
 def lstm_seq_shapes_ok(hidden: int, device: Optional[torch.device] = None) -> bool:

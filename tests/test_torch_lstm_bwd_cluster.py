@@ -1,11 +1,12 @@
 """The two routes of the port's per-layer LSTM backward (ops/fused_rnn.py,
 csrc/lstm_seq_bwd.cu).
 
-``lstm_seq_bwd_route(H, B, device)`` sends the widths and batches that the
-"cluster" kernel serves (128 <= H <= 512, H % 128 == 0, B <= 256, with its
-clusters of 8 blocks co-resident and its shared memory within the card's) to it and
-every other call to the "direct" kernel; the card's properties come in as a
-``CardProps`` of plain values here. The cluster kernel splits dh = dgates @
+``lstm_seq_bwd_route(H, B, compute_bf16, device)`` sends the bf16 widths and
+batches that the "cluster" kernel serves (128 <= H <= 512, H % 128 == 0, B <=
+256, with its clusters of 8 blocks co-resident and its shared memory within
+the card's) to it and every other call, float32 included, to the "direct"
+kernel; the card's properties come in as a ``CardProps`` of plain values
+here. The cluster kernel splits dh = dgates @
 W_hh over gate slices inside each cluster; ``test_gate_slices_cover_every_
 unit_once`` runs that index arithmetic in numpy.
 
@@ -26,7 +27,7 @@ H100 = fused_rnn.CardProps(132, 232448, 15)   # as an H100 SXM reports
 ATOL = {False: 1e-4, True: 1.5e-3}
 
 
-@pytest.mark.parametrize("hidden,batch,props,want", [
+_BF16_ROUTES = [
     (512, 1, H100, "cluster"), (512, 16, H100, "cluster"), (512, 96, H100, "cluster"),
     (512, 200, H100, "cluster"), (512, 208, H100, "cluster"), (512, 209, H100, "direct"),
     (512, 256, H100, "direct"), (512, 257, H100, "direct"),
@@ -47,11 +48,25 @@ ATOL = {False: 1e-4, True: 1.5e-3}
     # shared memory: B = 200 needs 222 KB, B = 96 138 KB
     (512, 200, fused_rnn.CardProps(132, 200 * 1024, 15), "direct"),
     (512, 96, fused_rnn.CardProps(132, 150 * 1024, 15), "cluster"),
-    (512, 16, fused_rnn.CardProps(132, 100 * 1024, 15), "direct")],
-    ids=lambda v: str(v) if not isinstance(v, fused_rnn.CardProps) else
-    f"sms{v.sms}-smem{v.smem_optin}-clusters{v.active_clusters}")
-def test_route_by_width_batch_and_card(hidden, batch, props, want):
-    assert fused_rnn.lstm_seq_bwd_route(hidden, batch, props) == want
+    (512, 16, fused_rnn.CardProps(132, 100 * 1024, 15), "direct")]
+
+
+def _route_id(*values):
+    return "-".join(str(v) if not isinstance(v, fused_rnn.CardProps) else
+                    f"sms{v.sms}-smem{v.smem_optin}-clusters{v.active_clusters}" for v in values)
+
+
+@pytest.mark.parametrize("hidden,batch,props,bf16,want", [
+    # the bf16 table (each case keeps the id it had before the route read the
+    # mode), then float32 (always "direct", even where the cluster route serves)
+    *(pytest.param(h, b, p, True, w, id=_route_id(h, b, p, w)) for h, b, p, w in _BF16_ROUTES),
+    *(pytest.param(512, b, H100, bf16, w,
+                   id=_route_id(512, b, H100, "bfloat16" if bf16 else "float32", w))
+      for b in (16, 96) for bf16, w in ((False, "direct"), (True, "cluster"))),
+    *(pytest.param(h, b, H100, False, "direct", id=_route_id(h, b, H100, "float32", "direct"))
+      for h, b in ((512, 1), (512, 200), (256, 16), (128, 8), (1000, 16)))])
+def test_route_by_width_batch_and_card(hidden, batch, props, bf16, want):
+    assert fused_rnn.lstm_seq_bwd_route(hidden, batch, bf16, props) == want
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -118,9 +133,9 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(bf16):
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
-    """A CUDA-typed tensor (a fake one here, with no card) goes to the
-    route and the kernel's build, which raises without nvcc; the plain
-    version is never called and no launch is counted."""
+    """A CUDA-typed tensor (a fake one here, with no card) in bf16 mode goes
+    to the cluster route and the kernel's build, which raises without nvcc;
+    the plain version is never called and no launch is counted."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     called = []
     monkeypatch.setattr(fused_rnn, "lstm_seq_bwd_reference", lambda *a: called.append(a))
@@ -136,8 +151,29 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = [torch.empty(a.shape, device="cuda") for a in _cpu_inputs(2, b=16, t=3, h=512)]
         with pytest.raises(RuntimeError):
-            fused_rnn.lstm_seq_bwd(*args, False)
+            fused_rnn.lstm_seq_bwd(*args, True)
     assert called == [] and routes == ["cluster"]
+    assert fused_rnn.lstm_seq_bwd.launches == before
+
+
+def test_float32_cuda_tensor_takes_the_direct_route(monkeypatch):
+    """Float32 goes to the direct route without asking the card for its
+    clusters; the plain version is never called and no launch is counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    called, routes = [], []
+    monkeypatch.setattr(fused_rnn, "lstm_seq_bwd_reference", lambda *a: called.append(a))
+    monkeypatch.setattr(fused_rnn, "card_props", lambda device: called.append(device))
+
+    def launch(*a, **kw):
+        routes.append(a[8])
+        raise RuntimeError("no card")
+    monkeypatch.setattr(fused_rnn, "launch_bwd", launch)
+    before = fused_rnn.lstm_seq_bwd.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = [torch.empty(a.shape, device="cuda") for a in _cpu_inputs(2, b=16, t=3, h=512)]
+        with pytest.raises(RuntimeError, match="no card"):
+            fused_rnn.lstm_seq_bwd(*args, False)
+    assert called == [] and routes == ["direct"]
     assert fused_rnn.lstm_seq_bwd.launches == before
 
 
@@ -247,16 +283,20 @@ def _routed_call(args, bf16, route):
 @pytest.mark.parametrize("T", [1, 80, 159])
 @pytest.mark.parametrize("B", [1, 16, 96, 200])
 def test_cluster_route_matches_plain_on_card(B, T, bf16):
-    """H = 512 on the cluster route, and the direct route forced on the same
-    inputs, against the plain version: dxp, dh0 and dc0."""
+    """H = 512 on the cluster route and on the direct route, on the same
+    inputs, against the plain version: dxp, dh0 and dc0; the wrapper's own
+    call on the route lstm_seq_bwd_route names (bf16 "cluster", float32
+    "direct")."""
     _card()
     args = _card_inputs(B * 1000 + T, B, T, 512)
-    assert fused_rnn.lstm_seq_bwd_route(512, B, "cuda") == "cluster"
+    route = fused_rnn.lstm_seq_bwd_route(512, B, bf16, "cuda")
+    assert route == ("cluster" if bf16 else "direct")
     want = fused_rnn.lstm_seq_bwd_reference(*args, bf16)
-    _check(_routed_call(args, bf16, "cluster"), want, bf16, ("cluster", B, T, bf16))
-    direct = fused_rnn.launch_bwd(*args, bf16, "direct")
-    torch.cuda.synchronize()
-    _check(direct, want, bf16, ("direct", B, T, bf16))
+    _check(_routed_call(args, bf16, route), want, bf16, (route, B, T, bf16))
+    for forced in ("cluster", "direct"):
+        got = fused_rnn.launch_bwd(*args, bf16, forced)
+        torch.cuda.synchronize()
+        _check(got, want, bf16, (forced, B, T, bf16))
 
 
 @pytest.mark.cuda
@@ -264,10 +304,11 @@ def test_cluster_route_matches_plain_on_card(B, T, bf16):
 @pytest.mark.parametrize("H,B", [(128, 8), (256, 33), (384, 17)])
 def test_other_widths_on_the_cluster_route(H, B, bf16):
     _card()
-    assert fused_rnn.lstm_seq_bwd_route(H, B, "cuda") == "cluster"
+    assert fused_rnn.lstm_seq_bwd_route(H, B, True, "cuda") == "cluster"
     args = _card_inputs(H + B, B, 30, H)
-    _check(_routed_call(args, bf16, "cluster"), fused_rnn.lstm_seq_bwd_reference(*args, bf16),
-           bf16, (H, B, bf16))
+    got = fused_rnn.launch_bwd(*args, bf16, "cluster")
+    torch.cuda.synchronize()
+    _check(got, fused_rnn.lstm_seq_bwd_reference(*args, bf16), bf16, (H, B, bf16))
 
 
 @pytest.mark.cuda
@@ -293,7 +334,9 @@ def test_card_properties_and_the_source_agree():
 def test_two_layer_torchrnn_gradients_on_the_cluster_route():
     """A 2-layer TorchRNN at H = 512 on the card against the CPU (plain)
     route: outputs and every gradient within 2e-3 (chip_smoke.py's
-    GRAD_TOL), and both backward launches on the cluster route."""
+    GRAD_TOL), and both backward launches on the route lstm_seq_bwd_route
+    names for float32 (the direct one: the cluster route serves the shape,
+    in bf16)."""
     _card()
     b, t, h = 16, 24, 512
     xs = torch.from_numpy(np.random.default_rng(3).normal(size=(b, t, h)).astype(np.float32))
@@ -308,8 +351,9 @@ def test_two_layer_torchrnn_gradients_on_the_cluster_route():
         out.square().sum().backward()
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert fused_rnn.lstm_seq_bwd.route_launches["cluster"] == before["cluster"] + 2
-            assert fused_rnn.lstm_seq_bwd.route_launches["direct"] == before["direct"]
+            route = fused_rnn.lstm_seq_bwd_route(h, b, False, dev)
+            assert route == "direct" and fused_rnn.cluster_serves(h, b, fused_rnn.card_props(dev))
+            assert fused_rnn.lstm_seq_bwd.route_launches == {**before, route: before[route] + 2}
         res[dev] = [out.detach().cpu()] + [p.grad.cpu() for p in mm.parameters()]
     for g, w in zip(res["cuda"], res["cpu"]):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-3, rtol=2e-3)
