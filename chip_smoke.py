@@ -13,12 +13,13 @@ Phases; a failure in any of them exits non-zero before the result line:
               fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
               sequence kernels at T = L = 80 (beam encode) and T = 159
               (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
-              times beside the bound. The LSTM forward and backward have two
-              routes each (lstm_seq_fwd_route: "mma" or "direct";
-              lstm_seq_bwd_route: "cluster" in bf16, "direct"): each check
-              call's route is printed and its launch held to it, the other
-              route is checked on the same inputs (its launch held to it too)
-              and timed beside the routed kernel, in turns.
+              times beside the bound. The fused forward and the LSTM forward
+              and backward have two routes each (fused_s2vt_fwd_route and
+              lstm_seq_fwd_route: "mma" or "direct"; lstm_seq_bwd_route:
+              "cluster" in bf16, "direct"): each check call's route is
+              printed and its launch held to it, the other route is checked
+              on the same inputs (its launch held to it too) and timed beside
+              the routed kernel, in turns.
   3. slice    greedy_eval -> model_from_checkpoint on a corpus and a
               checkpoint made from --seed at H = E = 512, F = 4096, L = 80
               (the serving path; the kernel launch counts are read around it),
@@ -82,7 +83,10 @@ argmax and cuDNN. Phase 9 holds each greedy request's #8 launches to the
 mma route.
 
 Every launch count read is held exactly to what the path should launch
-(s2vt_launches): each kernel where its slice says, and no other kernel.
+(s2vt_launches): each kernel where its slice says, and no other kernel; and
+every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
+9 and 10, the LSTM sequence kernels in phases 4-9) to the route its wrapper
+takes for that batch and mode.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -168,7 +172,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # Kernel #9's launches per VGG16 forward on each of its routes.
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
-ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd")
+ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd", "fused_s2vt_fwd")
 
 
 def card_line() -> str:
@@ -485,10 +489,26 @@ def phase_kernels(torch, device, hid, length, batches, timed, reps, card):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             args = fused_inputs(torch, B, T, hid, dtype, device, gen)
+            bf16 = dtype == torch.bfloat16
+            before = read_routes("fused_s2vt_fwd") if device.type == "cuda" else None
             got = fs.fused_s2vt_fwd(*args, snap)
             sync()
-            _check(torch, "fused_s2vt_fwd", B, name, hid, T, got,
-                   fs.fused_s2vt_fwd_reference(*args, snap), errors)
+            want = fs.fused_s2vt_fwd_reference(*args, snap)
+            _check(torch, "fused_s2vt_fwd", B, name, hid, T, got, want, errors)
+            route = other = None
+            if device.type == "cuda":
+                # The wrapper's route held, then the other route on the same
+                # inputs.
+                route = fs.fused_s2vt_fwd_route(hid, B, bf16, device)
+                other = "direct" if route == "mma" else "mma"
+                print(f"kernel fused_s2vt_fwd B={B} {name} T={T}: route {route}", flush=True)
+                held_to_route("fused_s2vt_fwd", before, route, f"B={B} {name} T={T}")
+                before = read_routes("fused_s2vt_fwd")
+                g1o, c1o, g2o, c2o, fino = fs.launch_fwd(*args, snap, other)
+                sync()
+                held_to_route("fused_s2vt_fwd", before, other, f"B={B} {name} T={T} ({other})")
+                _check(torch, f"fused_s2vt_fwd[{other}]", B, name, hid, T,
+                       (g1o, c1o, g2o, c2o, *fino.unbind(0)), want, errors)
             g1, c1, g2, c2 = got[:4]
             dout2 = torch.randn(T, B, hid, device=device, generator=gen)
             bargs = (g1, c1, g2, c2, dout2, *args[2:])
@@ -498,15 +518,33 @@ def phase_kernels(torch, device, hid, length, batches, timed, reps, card):
                    errors)
             if B not in timed:
                 continue
-            k_ms = cuda_ms(torch, lambda: fs.fused_s2vt_fwd(*args, snap), reps)
+            route_note = ""
+            if route is None:
+                k_ms = cuda_ms(torch, lambda: fs.fused_s2vt_fwd(*args, snap), reps)
+            else:
+                # The routed kernel and its other route in turns: routed,
+                # other, other, routed.
+                def other_fn():
+                    fs.launch_fwd(*args, snap, other)
+                turns = [cuda_ms(torch, f, reps) for f in
+                         (lambda: fs.fused_s2vt_fwd(*args, snap), other_fn, other_fn,
+                          lambda: fs.fused_s2vt_fwd(*args, snap))]
+                k_ms, o_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                route_note = (f"route={route} {other}_route_ms={o_ms:.4f} "
+                              f"({o_ms / (T + 1) * 1e3:.2f} us per iteration) ")
             p_ms = cuda_ms(torch, lambda: fs.fused_s2vt_fwd_reference(*args, snap),
                            max(1, reps // 5), warmup=1)
             lib_ms = library_lstm_ms(torch, B, T, hid, hid, dtype, device, reps)
             bound, bound_by, nbytes, flops = fused_bound_ms(B, T, hid, name)
             times[("fused_s2vt_fwd", B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                                                       bound_ms=bound, bound_by=bound_by)
+            if route is not None:
+                times[("fused_s2vt_fwd", B, name, T)].update(route=route, other_route=other,
+                                                          other_ms=o_ms)
             print(f"time fused_s2vt_fwd B={B} {name}: kernel_ms={k_ms:.4f} "
-                  f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
+                  f"({k_ms / (T + 1) * 1e3:.2f} us per iteration) " + route_note
+                  + f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} (2x cuDNN nn.LSTM fwd) "
+                  f"bound_ms={bound:.4f} "
                   f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
                   f"bound_share={bound / k_ms:.4f} [{card}]", flush=True)
 
@@ -572,9 +610,15 @@ SEQ_ROUTES = {"lstm_seq_fwd": ("lstm_seq_fwd_route", "launch_fwd", ("mma", "dire
               "lstm_seq_bwd": ("lstm_seq_bwd_route", "launch_bwd", ("cluster", "direct"))}
 
 
+# Every routed recurrent kernel whose main-path launches a phase holds to
+# its route: (its route function, its routes).
+ROUTE_RULES = {**{k: (v[0], v[2]) for k, v in SEQ_ROUTES.items()},
+               "fused_s2vt_fwd": ("fused_s2vt_fwd_route", ("mma", "direct"))}
+
+
 def seq_route(name: str, hid: int, B: int, bf16: bool, device) -> str:
     """The route ``name``'s wrapper takes for (H, B, mode) on ``device``."""
-    return getattr(_module(name), SEQ_ROUTES[name][0])(hid, B, bf16, device)
+    return getattr(_module(name), ROUTE_RULES[name][0])(hid, B, bf16, device)
 
 
 def launch_route(name: str, args, bf16: bool, route: str):
@@ -1078,6 +1122,7 @@ def phase_slice(torch, device, ckpt, seed, hid, feat, length, vocab, batches, re
     sync()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    fused_routes = read_routes("fused_s2vt_fwd")
     with plain_kernels():
         plain_preds = greedy_eval(ckpt, batch_size=MAIN_BATCH, device=dev_arg)
     n_batches = -(-len(preds) // MAIN_BATCH)
@@ -1088,6 +1133,10 @@ def phase_slice(torch, device, ckpt, seed, hid, feat, length, vocab, batches, re
     want = expect(requests=(s2vt_launches("lstm", 1, length)[2], n_batches))
     if launches != want:
         raise SystemExit(f"greedy_eval launched {launches} for {n_batches} requests, not {want}")
+    # Every request is a fixed-shape batch of MAIN_BATCH rows, float32.
+    hold_seq_routes({"fused_s2vt_fwd": fused_routes},
+                    {"fused_s2vt_fwd": {MAIN_BATCH: launches["fused_s2vt_fwd"]}}, device,
+                    "slice greedy_eval", card, hid)
     if not preds or not all(isinstance(s, str) and s for s in preds.values()):
         raise SystemExit("greedy_eval returned no or empty captions")
     if same < ROW_MATCH_MIN_F32:
@@ -1282,20 +1331,20 @@ def s2vt_launches(rnn_type, num_layers, length=LENGTH):
 
 def hold_seq_routes(routes: dict, per_batch: dict, device, label: str, card: str,
                     hid: int = H, bf16: bool = False) -> None:
-    """Phases 5, 6, 7 and 9: each launch of the LSTM sequence kernels on the
-    route its wrapper takes for that batch and mode. ``routes`` holds each
-    kernel's route counts of the run, ``per_batch`` {kernel: {B: launches at
-    that B}}."""
+    """Phases 3-10: each launch of the routed recurrent kernels (the LSTM
+    sequence kernels, the fused forward) on the route its wrapper takes for
+    that batch and mode. ``routes`` holds each kernel's route counts of the
+    run, ``per_batch`` {kernel: {B: launches at that B}}."""
     if device.type != "cuda":
         return
-    print(f"{label}: sequence kernel route launches {routes} [{card}]", flush=True)
+    print(f"{label}: routed kernel launches {routes} [{card}]", flush=True)
     for name, counts in per_batch.items():
-        want = dict.fromkeys(SEQ_ROUTES[name][2], 0)
+        want = dict.fromkeys(ROUTE_RULES[name][1], 0)
         for B, n in counts.items():
             want[seq_route(name, hid, B, bf16, device)] += n
         if routes[name] != want:
             raise SystemExit(f"{label}: {name} launched {routes[name]}, not {want} (the routes "
-                             f"{SEQ_ROUTES[name][0]} names)")
+                             f"{ROUTE_RULES[name][0]} names)")
 
 
 def expect(**per_unit) -> dict:
@@ -1332,7 +1381,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
         sync()
         wall = time.perf_counter() - t0
         launches = read_launches()
-        routes = {k: read_routes(k) for k in SEQ_ROUTES}
+        routes = {k: read_routes(k) for k in ROUTE_RULES}
         hist = trainer.history
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
@@ -1349,7 +1398,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
                              f"{launches}, not {want}")
         if n_train % MAIN_BATCH or n_valid % MAIN_BATCH:
             raise SystemExit(f"the corpus splits ({n_train}, {n_valid}) are not whole batches")
-        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]} for k in SEQ_ROUTES}, device,
+        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]} for k in ROUTE_RULES}, device,
                         f"{rnn_type} {num_layers}-layer training", card, hid)
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
@@ -1410,6 +1459,7 @@ def decode_final(torch, final, dev_arg, n_test, sync, label, per_request, card, 
         sync()
         wall = time.perf_counter() - t0
         counts = read_launches()
+        routes = {k: read_routes(k) for k in ROUTE_RULES}
         with plain_kernels():
             plain_preds = entry(final, batch_size=MAIN_BATCH, device=dev_arg, **kw)
         n_req = -(-len(preds) // MAIN_BATCH)
@@ -1422,6 +1472,9 @@ def decode_final(torch, final, dev_arg, n_test, sync, label, per_request, card, 
         want = expect(requests=(per_request[name], n_req))
         if counts != want:
             raise SystemExit(f"{label} {name} launched {counts} for {n_req} requests, not {want}")
+        hold_seq_routes(routes, {k: {MAIN_BATCH: counts[k]} for k in ROUTE_RULES},
+                        torch.device("cpu" if dev_arg == "cpu" else "cuda"),
+                        f"{label} {name}", card)
         if (len(preds) != n_test or not all(isinstance(c, str) for c in preds.values())
                 or empty == len(preds) or (empty and name not in allow_empty)):
             raise SystemExit(f"{label} {name} decoded to missing or empty captions: {preds}")
@@ -1478,7 +1531,7 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
         sync()
         wall = time.perf_counter() - t0
         launches = read_launches()
-        routes = {k: read_routes(k) for k in SEQ_ROUTES}
+        routes = {k: read_routes(k) for k in ROUTE_RULES}
         hist = trainer.history
         n_train, n_valid = len(trainer.train_ds), len(trainer.valid_ds)
         train_steps = epochs * -(-n_train // MAIN_BATCH)
@@ -1614,7 +1667,7 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         sync()
         wall = time.perf_counter() - t0
         launches, routes = read_launches(), read_routes("argmax_linear")
-        seq_routes = {k: read_routes(k) for k in SEQ_ROUTES}
+        seq_routes = {k: read_routes(k) for k in ROUTE_RULES}
         x = payloads[dtype].to(device)
         want = sentences(model.greedy(x) if mode == "greedy"
                          else model.beam(x, BEAM_WIDTH, depth).tokens[:, 0])
@@ -1634,7 +1687,7 @@ def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BE
         if routes != {"mma": launches["argmax_linear"], "direct": 0}:
             raise SystemExit(f"the {mode} {dtype} artifact's #8 launches took the routes "
                              f"{routes}, not all the mma route")
-        hold_seq_routes(seq_routes, {k: {batch: launches[k]} for k in SEQ_ROUTES}, device,
+        hold_seq_routes(seq_routes, {k: {batch: launches[k]} for k in ROUTE_RULES}, device,
                         f"serving {mode} artifact feats={dtype}", card, opt.dim_hidden)
         if same < 1.0 or len(got) != batch:
             raise SystemExit(f"the {mode} {dtype} artifact's sentences differ from the model's: "
@@ -1715,6 +1768,7 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
     sync()
     wall = time.perf_counter() - t0
     launches, routes = read_launches(), read_routes("conv3x3_bn_relu")
+    fused_routes = read_routes("fused_s2vt_fwd")
     direct = cap.artifact.caption(np.stack([cap.extractor(load_clip(d)) for d in dirs]))
     empty = sum(not c for c in out.values())
     print(f"caption ClipCaptioner(vgg16, greedy artifact) over {n_clips} frame directories: "
@@ -1727,6 +1781,10 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
             or routes != {k: n * n_clips for k, n in VGG_ROUTES.items()}):
         raise SystemExit(f"ClipCaptioner launched {launches}, #9 routes {routes}, for "
                          f"{n_clips} clips")
+    # The artifact's fixed batch: the clips zero-padded to its rows.
+    hold_seq_routes({"fused_s2vt_fwd": fused_routes},
+                    {"fused_s2vt_fwd": {cap.artifact.batch_size: launches["fused_s2vt_fwd"]}},
+                    device, "ClipCaptioner request", card)
     if len(out) != n_clips or empty or list(out.values()) != direct:
         raise SystemExit(f"ClipCaptioner captions missing, empty or off the artifact's: {out} "
                          f"vs {direct}")
@@ -1826,8 +1884,9 @@ def main() -> int:
         stamp("phase 10")
 
     # 4. the training slice: the main path
-    launches = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
-                           TRAIN_EPOCHS, batches=TIMED_BATCHES, reps=5, card=card)[0]
+    launches, _, routes1 = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB,
+                                       TRAIN_CLIPS, TRAIN_EPOCHS, batches=TIMED_BATCHES, reps=5,
+                                       card=card)
     stamp("phase 4")
     # 6. two-layer training: the backward sequence kernel's main path
     launches2, _, routes2 = phase_train(torch, device, args.seed, H, FEAT, LENGTH, VOCAB,
@@ -1875,6 +1934,8 @@ def main() -> int:
             rows[-1]["route_launches"] = beam_routes
         if name == "lstm_seq_bwd":
             rows[-1]["route_launches"] = routes2["lstm_seq_bwd"]
+        if name == "fused_s2vt_fwd":
+            rows[-1]["route_launches"] = routes1["fused_s2vt_fwd"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,14 +18,16 @@ gives dh1 and ``dg2 @ W2hh`` gives dh2, one step apart.
 (``csrc/fused_s2vt_fwd.cu``, ``csrc/fused_s2vt_bwd.cu``) for CUDA tensors and
 run ``fused_s2vt_fwd_reference`` / ``fused_s2vt_bwd_reference``, the same
 recurrences in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a
-kernel or an exception. ``s2vt_fused_out2`` is differentiable through both.
+kernel or an exception. The forward has two kernels, its "mma" and "direct"
+routes, picked by ``fused_s2vt_fwd_route`` from the shapes, the mode and the
+card before the launch. ``s2vt_fused_out2`` is differentiable through both.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -201,13 +203,180 @@ def units_per_block(dim_hid: int, sm_count: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     """The kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_LIB_NAME)
+    return set_fwd_signatures(_build.load(_LIB_NAME))
+
+
+def set_fwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the forward library's entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.s2vt_fused_fwd.argtypes = [vp] * 11 + [ci] * 7 + [vp]
     lib.s2vt_fused_fwd.restype = ci
     lib.s2vt_fused_fwd_smem_bytes.argtypes = [ci, ci]
     lib.s2vt_fused_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.s2vt_fused_fwd_mma.argtypes = [vp] * 11 + [ci] * 9 + [vp]
+    lib.s2vt_fused_fwd_mma.restype = ci
+    lib.s2vt_fused_fwd_mma_smem_bytes.argtypes = [ci] * 5
+    lib.s2vt_fused_fwd_mma_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+# The forward's "mma" route (csrc/fused_s2vt_fwd.cu, namespace mma_route):
+# its blocks and what each holds.
+_MMA_UNITS = (4, 8)                # instantiated hidden units per block (U)
+_MMA_SLOTS = 32                    # (cell, gate) pairs a thread runs per iteration
+_MMA_MAX_TILES = 4                 # m16 row tiles staged per pass
+_MMA_MAX_HIDDEN = 512              # a lane's 16-byte exchange loads cover a row
+_MMA_MAX_BATCH = 200               # the largest batch routed to it (the sweep's largest)
+
+
+class FwdCard(NamedTuple):
+    """What the forward's route depends on, of one card: its SMs and the
+    opt-in shared memory of a block (a ``fused_rnn.CardProps`` serves too)."""
+    sms: int
+    smem_optin: int
+
+
+class FwdPlan(NamedTuple):
+    """How the mma route lays out one launch: ``groups`` batch groups of
+    ``rows`` rows (the last may hold fewer), each run by H / ``units``
+    blocks that own ``units`` hidden units of both layers each; a block
+    stages ``tiles`` m16 row tiles of its group per pass, ``passes`` passes
+    per iteration."""
+    units: int
+    groups: int
+    rows: int
+    tiles: int
+    passes: int
+
+
+def fused_fwd_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool,
+                         passes: int = 1) -> int:
+    """Dynamic shared memory of one mma-route block (``smem_bytes`` in the
+    source): the block's 12U weight rows (W1hh, W2v, W2hh) and ``tiles`` m16
+    tiles of staged [h1 | h2] rows, in the operand type with 8 elements of
+    padding per row; then the gate sums -- in bf16 the k shares of the
+    warps (8 / (1.5U / 3) of them), laid over the staged rows; in float32
+    the 8 slice partials of each (column, row), apart --, the c of each of
+    the 256 threads' cell slots (tiles x U / 2 per pass) and two buffers of
+    a pass's x [2 layers][rows][4 gates][U]."""
+    es = 2 if compute_bf16 else 4
+    n, rows = 12 * units, 16 * tiles
+    weights = n * (hidden + 8) * es
+    staged = rows * (2 * hidden + 8) * es
+    cells = 4 * 256 * passes * tiles * units // 2
+    x_bufs = 2 * 8 * rows * units * es
+    if compute_bf16:
+        shares = 8 // (n // 8 // 3)
+        return weights + max(staged, 4 * shares * rows * (n + 4)) + cells + x_bufs
+    per_slice = n * (rows + 1)             # slice_stride: rounded up to 4 mod 32
+    return weights + staged + 4 * 8 * (per_slice + (4 - per_slice) % 32) + cells + x_bufs
+
+
+def fused_fwd_plan(hidden: int, batch: int, compute_bf16: bool, props,
+                   units: Optional[int] = None) -> Optional[FwdPlan]:
+    """The mma route's layout for hidden size ``hidden`` and batch ``batch``
+    on a card of ``props`` (a ``FwdCard`` or ``fused_rnn.CardProps``), or
+    None where it does not serve: 128 <= H <= 512, H % 128 == 0. For each U
+    (``units``, or 4 and 8) the batch splits into as many groups as the
+    card's SMs hold (G H / U <= SMs); a block stages as many of its group's
+    m16 tiles per pass as its shared memory and its 32 pairs per thread
+    allow; of these the plan with the fewest passes, then the fewest padded
+    products per block (m16 tiles per group x U), then rows per group is
+    chosen. At H = 512 float32 fits only U = 4 (one group, one m16 tile per
+    pass); bf16 takes U = 4 at B = 16 (0.6611 against 0.8216 ms at U = 8)
+    and U = 8 in two groups of 48 rows at B = 96 (2.3696 against 3.2902 ms
+    at U = 4 in two passes; tools/fused_fwd_variants.py, units4 and units8,
+    on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    if not (128 <= hidden <= _MMA_MAX_HIDDEN and hidden % 128 == 0 and batch >= 1):
+        return None
+    plans = []
+    for u in (units,) if units else _MMA_UNITS:
+        groups = min(props.sms // (hidden // u), batch)
+        if u not in _MMA_UNITS or groups < 1:
+            continue
+        rows = -(-batch // groups)
+        groups = -(-batch // rows)
+        m_tiles = -(-rows // 16)
+        for tiles in range(min(m_tiles, _MMA_MAX_TILES), 0, -1):
+            passes = -(-m_tiles // tiles)
+            if (passes * tiles * u // 2 <= _MMA_SLOTS
+                    and fused_fwd_smem_bytes(hidden, u, tiles, compute_bf16, passes)
+                    <= props.smem_optin):
+                plans.append(FwdPlan(u, groups, rows, tiles, passes))
+                break
+    return min(plans, key=lambda p: (p.passes, -(-p.rows // 16) * p.units, p.rows),
+               default=None)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_card(index: int) -> FwdCard:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return FwdCard(sms, _build.smem_optin(torch.device("cuda", index)))
+
+
+def fwd_card(device) -> FwdCard:
+    """``FwdCard`` of card ``device``, read once per card."""
+    device = torch.device(device)
+    return _fwd_card(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def fused_s2vt_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
+    mode ``compute_bf16`` on ``device`` (a card, or its ``FwdCard``): "mma"
+    where ``fused_fwd_plan`` serves and B <= 200, else "direct" (the
+    grid-synchronised kernel on the CUDA cores). On an NVIDIA H100 80GB HBM3
+    at 700 W the mma route was faster at every measured batch, in both
+    modes (tools/fused_fwd_variants.py --route sweep, H = 512, T = 159, B in
+    1, 2, 4, 8, 16, 24, 32, 48, 64, 80, 96, 112, 128, 160, 200, the two
+    routes in turns): float32 0.8039 against 0.9619 ms at B = 1, 1.3497
+    against 1.5955 at B = 16, 7.8768 against 8.3853 at B = 96, 16.7073
+    against 17.5566 at B = 200 (the closest); bf16 0.5926 against 1.2459 at
+    B = 1, 0.6484 against 1.7412 at B = 16, 2.3750 against 9.3312 at
+    B = 96, 6.6816 against 19.7117 at B = 200. Larger batches were not
+    measured. Chosen before the launch, from the shapes, the mode and the
+    card alone."""
+    if batch > _MMA_MAX_BATCH:
+        return "direct"
+    props = device if hasattr(device, "smem_optin") else fwd_card(device)
+    return "mma" if fused_fwd_plan(hidden, batch, compute_bf16, props) else "direct"
+
+
+def launch_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int, route: str, lib=None, plan=None):
+    """One launch of ``route``'s kernel on CUDA tensors checked by the
+    caller (or, to time one route beside the other, by chip_smoke.py and
+    the variant tool, which may pass its own build as ``lib`` and an mma
+    ``plan``). Returns (g1, c1, g2, c2, fin [6, B, H])."""
+    T, B, G = x1.shape
+    H = G // 4
+    dev, mmd = x1.device, x1.dtype
+    bf16 = mmd == torch.bfloat16
+    g1 = torch.empty(T, B, G, dtype=mmd, device=dev)
+    g2 = torch.empty(T, B, G, dtype=mmd, device=dev)
+    c1 = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    c2 = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    fin = torch.empty(6, B, H, dtype=torch.float32, device=dev)
+    tensors = (x1, x2, w1hh, w2v, w2hh, g1, c1, g2, c2, fin)
+    if route == "mma":
+        plan = plan or fused_fwd_plan(H, B, bf16, fwd_card(dev))
+        if plan is None:
+            raise ValueError(f"fused_s2vt_fwd: the mma route does not serve H={H}, B={B}")
+        # This launch's exchange: [h1 | h2] tagged with the iteration that
+        # wrote it, by its parity (in bf16 two units per word); zeros tag
+        # nothing.
+        xch = torch.zeros(2 * B * (H if bf16 else 2 * H), dtype=torch.int64, device=dev)
+        _build.launch(lib or _kernel_lib(), "s2vt_fused_fwd_mma", "fused_s2vt_fwd",
+                      tensors + (xch,),
+                      (T, B, H, snap_idx, plan.units, plan.groups, plan.tiles, int(bf16)))
+    else:
+        if H % 2:
+            raise ValueError(f"the kernel loads h as float4 and needs an even H, got {H}")
+        units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
+        hbuf = torch.zeros(2, B, 2 * H, dtype=torch.float32, device=dev)
+        _build.launch(lib or _kernel_lib(), "s2vt_fused_fwd", "fused_s2vt_fwd",
+                      tensors + (hbuf,), (T, B, H, units, snap_idx, int(bf16)))
+    fused_s2vt_fwd.launches += 1
+    fused_s2vt_fwd.route_launches[route] += 1
+    return g1, c1, g2, c2, fin
 
 
 def _fused_s2vt_fwd_impl(x1, x2, w1hh, w2v, w2hh, snap_idx):
@@ -215,25 +384,10 @@ def _fused_s2vt_fwd_impl(x1, x2, w1hh, w2v, w2hh, snap_idx):
         g1, c1, g2, c2, *fin = fused_s2vt_fwd_reference(x1, x2, w1hh, w2v, w2hh, snap_idx)
         return g1, c1, g2, c2, torch.stack(fin)
     _check_args(x1, x2, w1hh, w2v, w2hh, snap_idx)
-    tensors = (x1, x2, w1hh, w2v, w2hh)
-    _build.check_cuda("fused_s2vt_fwd", tensors)
+    _build.check_cuda("fused_s2vt_fwd", (x1, x2, w1hh, w2v, w2hh))
     T, B, G = x1.shape
-    H = G // 4
-    if H % 2:
-        raise ValueError(f"the kernel loads h as float4 and needs an even H, got {H}")
-    dev, mmd = x1.device, x1.dtype
-    lib = _kernel_lib()
-    units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
-    g1 = torch.empty(T, B, G, dtype=mmd, device=dev)
-    g2 = torch.empty(T, B, G, dtype=mmd, device=dev)
-    c1 = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    c2 = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    fin = torch.empty(6, B, H, dtype=torch.float32, device=dev)
-    hbuf = torch.zeros(2, B, 2 * H, dtype=torch.float32, device=dev)
-    _build.launch(lib, "s2vt_fused_fwd", "fused_s2vt_fwd", (*tensors, g1, c1, g2, c2, fin, hbuf),
-                  (T, B, H, units, snap_idx, int(mmd == torch.bfloat16)))
-    fused_s2vt_fwd.launches += 1
-    return g1, c1, g2, c2, fin
+    route = fused_s2vt_fwd_route(G // 4, B, x1.dtype == torch.bfloat16, x1.device)
+    return launch_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx, route)
 
 
 def _fused_s2vt_fwd_fake(x1, x2, w1hh, w2v, w2hh, snap_idx):
@@ -253,14 +407,17 @@ def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
     """The fused forward (``fused_s2vt_fwd_reference``'s contract), a
     ``torch.library`` operator so that an exported decode holds it.
 
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``fused_s2vt_fwd.launches``; CPU tensors run the plain version."""
+    CUDA tensors (contiguous) launch the kernel of ``fused_s2vt_fwd_route``
+    once and add one to ``fused_s2vt_fwd.launches`` and to
+    ``fused_s2vt_fwd.route_launches[route]``; CPU tensors run the plain
+    version."""
     _build.check_device("fused_s2vt_fwd", x1)
     g1, c1, g2, c2, fin = _fused_s2vt_fwd_op(x1, x2, w1hh, w2v, w2hh, snap_idx)
     return (g1, c1, g2, c2, *fin.unbind(0))
 
 
 fused_s2vt_fwd.launches = 0
+fused_s2vt_fwd.route_launches = {"mma": 0, "direct": 0}
 
 
 @functools.lru_cache(maxsize=None)
