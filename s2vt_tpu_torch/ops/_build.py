@@ -22,7 +22,7 @@ import pathlib
 import re
 import shutil
 import subprocess
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
 
@@ -173,14 +173,28 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+class Card(NamedTuple):
+    """What a kernel's layout depends on, of one card: its SMs and the
+    opt-in shared memory a block may use."""
+    sms: int
+    smem_optin: int
+
+
 @functools.lru_cache(maxsize=None)
-def _smem_optin(index: int) -> int:
-    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+def _card(index: int) -> Card:
+    props = torch.cuda.get_device_properties(index)
+    return Card(props.multi_processor_count, props.shared_memory_per_block_optin)
+
+
+def card(device) -> Card:
+    """``Card`` of card ``device``, read once per card."""
+    device = torch.device(device)
+    return _card(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def smem_optin(device: torch.device) -> int:
     """The opt-in shared memory a block may use on card ``device``."""
-    return _smem_optin(device.index if device.index is not None else torch.cuda.current_device())
+    return card(device).smem_optin
 
 
 def check_device(name: str, tensor) -> None:

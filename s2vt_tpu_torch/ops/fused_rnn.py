@@ -236,8 +236,8 @@ _CLUSTER_MAX_SLICE = 256           # gate rows of a block's slice, 4H / 8
 
 class CardProps(NamedTuple):
     """What the routes depend on, of one card: its SMs, the opt-in shared
-    memory of a block, and the clusters of 8 cluster-route blocks (of the
-    backward) the card holds at once."""
+    memory of a block (``_build.Card``), and the clusters of 8 cluster-route
+    blocks (of the backward) the card holds at once."""
     sms: int
     smem_optin: int
     active_clusters: int
@@ -283,8 +283,7 @@ def _card_props(index: int) -> CardProps:
     if err != 0:
         raise RuntimeError(f"lstm_seq_bwd: cudaOccupancyMaxActiveClusters failed: "
                            f"{lib.s2vt_cuda_error_string(err).decode()} (cudaError {err})")
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return CardProps(sms, _build.smem_optin(torch.device("cuda", index)), n.value)
+    return CardProps(*_build.card(torch.device("cuda", index)), n.value)
 
 
 def card_props(device) -> CardProps:

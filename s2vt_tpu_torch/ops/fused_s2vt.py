@@ -229,13 +229,6 @@ _MMA_MAX_HIDDEN = 512              # a lane's 16-byte exchange loads cover a row
 _MMA_MAX_BATCH = 200               # the largest batch routed to it (the sweep's largest)
 
 
-class FwdCard(NamedTuple):
-    """What the forward's route depends on, of one card: its SMs and the
-    opt-in shared memory of a block (a ``fused_rnn.CardProps`` serves too)."""
-    sms: int
-    smem_optin: int
-
-
 class FwdPlan(NamedTuple):
     """How the mma route lays out one launch: ``groups`` batch groups of
     ``rows`` rows (the last may hold fewer), each run by H / ``units``
@@ -275,7 +268,7 @@ def fused_fwd_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool
 def fused_fwd_plan(hidden: int, batch: int, compute_bf16: bool, props,
                    units: Optional[int] = None) -> Optional[FwdPlan]:
     """The mma route's layout for hidden size ``hidden`` and batch ``batch``
-    on a card of ``props`` (a ``FwdCard`` or ``fused_rnn.CardProps``), or
+    on a card of ``props`` (a ``_build.Card`` or ``fused_rnn.CardProps``), or
     None where it does not serve: 128 <= H <= 512, H % 128 == 0. For each U
     (``units``, or 4 and 8) the batch splits into as many groups as the
     card's SMs hold (G H / U <= SMs); a block stages as many of its group's
@@ -308,21 +301,9 @@ def fused_fwd_plan(hidden: int, batch: int, compute_bf16: bool, props,
                default=None)
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_card(index: int) -> FwdCard:
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return FwdCard(sms, _build.smem_optin(torch.device("cuda", index)))
-
-
-def fwd_card(device) -> FwdCard:
-    """``FwdCard`` of card ``device``, read once per card."""
-    device = torch.device(device)
-    return _fwd_card(device.index if device.index is not None else torch.cuda.current_device())
-
-
 def fused_s2vt_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
     """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
-    mode ``compute_bf16`` on ``device`` (a card, or its ``FwdCard``): "mma"
+    mode ``compute_bf16`` on ``device`` (a card, or its ``_build.Card``): "mma"
     where ``fused_fwd_plan`` serves and B <= 200, else "direct" (the
     grid-synchronised kernel on the CUDA cores). On an NVIDIA H100 80GB HBM3
     at 700 W the mma route was faster at every measured batch, in both
@@ -337,15 +318,15 @@ def fused_s2vt_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) ->
     card alone."""
     if batch > _MMA_MAX_BATCH:
         return "direct"
-    props = device if hasattr(device, "smem_optin") else fwd_card(device)
+    props = device if hasattr(device, "smem_optin") else _build.card(device)
     return "mma" if fused_fwd_plan(hidden, batch, compute_bf16, props) else "direct"
 
 
 def launch_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int, route: str, lib=None, plan=None):
     """One launch of ``route``'s kernel on CUDA tensors checked by the
     caller (or, to time one route beside the other, by chip_smoke.py and
-    the variant tool, which may pass its own build as ``lib`` and an mma
-    ``plan``). Returns (g1, c1, g2, c2, fin [6, B, H])."""
+    tools/fused_fwd_variants.py, which passes its own builds as ``lib`` and
+    its layouts as the mma ``plan``). Returns (g1, c1, g2, c2, fin [6, B, H])."""
     T, B, G = x1.shape
     H = G // 4
     dev, mmd = x1.device, x1.dtype
@@ -357,7 +338,7 @@ def launch_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int, route: str, lib=None, pla
     fin = torch.empty(6, B, H, dtype=torch.float32, device=dev)
     tensors = (x1, x2, w1hh, w2v, w2hh, g1, c1, g2, c2, fin)
     if route == "mma":
-        plan = plan or fused_fwd_plan(H, B, bf16, fwd_card(dev))
+        plan = plan or fused_fwd_plan(H, B, bf16, _build.card(dev))
         if plan is None:
             raise ValueError(f"fused_s2vt_fwd: the mma route does not serve H={H}, B={B}")
         # This launch's exchange: [h1 | h2] tagged with the iteration that

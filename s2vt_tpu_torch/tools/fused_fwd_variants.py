@@ -29,8 +29,9 @@ variants:
   place of fused multiply-adds on the CUDA cores in the direct route's
   order;
 - ``phase_clock``: block 0's thread 0 sums the clock cycles of each phase of
-  an iteration (the x copies and the poll, the products, the cells) into
-  words after the exchange (printed per iteration);
+  an iteration (the x copies and the poll, the products, the cells) and
+  writes the sums over the first words of c1, which only block 0 writes
+  (printed per iteration);
 
 and layouts of the route as it is (launch parameters, not edits): ``units4``
 and ``units8`` force U units per block with as many batch groups as the card
@@ -94,15 +95,15 @@ TIMING_ONLY = ("no_poll", "no_stores", "no_products", "no_x", "phase_clock")
 LAYOUTS = ("units4", "units8")
 
 PHASES = ("poll", "products", "cells")
-TAIL_WORDS = 512                   # spare words after the exchange for the clocks
 _PASS = "    for (int ps = 0; ps < npass; ++ps) {\n"
 _ITERS = "  for (int t = 0; t <= T; ++t) {\n" + _PASS
 _SUMS_SYNC = ("      __syncthreads();                              // every gate sum of the pass "
               "is written\n")
 _KERNEL_END = "  }\n}\n\ntemplate <int kBf16, int kU>\ncudaError_t launch("
 # (text, its replacement): block 0's thread 0 sums the clock cycles of each
-# of PHASES (the cells of a pass until the next pass starts) and stores them
-# after the exchange.
+# of PHASES (the cells of a pass until the next pass starts) and stores them,
+# as floats, over c1[0, 0, :3]: units 0-2 of row 0 at step 0, written by
+# block 0 alone and long before its loop ends.
 _PHASE_MARKS = (
     (_ITERS, f"""  long long clk[{len(PHASES)}] = {{}}, clk0 = clock64();
   auto mark = [&](int phase) {{
@@ -116,7 +117,7 @@ _PHASE_MARKS = (
     (_KERNEL_END, f"""  }}
   if (blockIdx.x == 0 && tid == 0)
     for (int ph = 0; ph < {len(PHASES)}; ++ph)
-      xch[(size_t)2 * B * wrow + ph] = (unsigned long long)clk[ph];
+      c1[ph] = (float)clk[ph];
 }}
 
 template <int kBf16, int kU>
@@ -205,23 +206,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def launch_mma(lib, args, plan, tail: int = 0):
-    """One launch of an mma variant's kernel: ((g1, c1, g2, c2, fin), the
-    exchange with ``tail`` spare words)."""
-    x1 = args[0]
-    steps, B, G = x1.shape
-    hid, dev, mmd = G // 4, x1.device, x1.dtype
-    bf16 = mmd == torch.bfloat16
-    outs = (torch.empty(steps, B, G, dtype=mmd, device=dev),
-            torch.empty(steps, B, hid, device=dev),
-            torch.empty(steps, B, G, dtype=mmd, device=dev),
-            torch.empty(steps, B, hid, device=dev), torch.empty(6, B, hid, device=dev))
-    xch = torch.zeros(2 * B * (hid if bf16 else 2 * hid) + tail, dtype=torch.int64, device=dev)
-    _build.launch(lib, "s2vt_fused_fwd_mma", "fused_s2vt_fwd", (*args, *outs, xch),
-                  (steps, B, hid, steps // 2, plan.units, plan.groups, plan.tiles, int(bf16)))
-    return outs, xch
-
-
 def max_err(got, want) -> float:
     g1, c1, g2, c2, fin = got
     return max((g.float() - w.float()).abs().max().item()
@@ -233,7 +217,7 @@ def shapes():
 
 
 def run_mma(args, card, ins) -> None:
-    props = fs.fwd_card("cuda")
+    props = _build.card("cuda")
     want = {bf16: fs.fused_s2vt_fwd_reference(*ins[(16, bf16)], T // 2) for bf16 in (False, True)}
     chosen = {k: v for k, v in mma_variants(kernel_source()).items()
               if not args.only or k in args.only}
@@ -243,25 +227,28 @@ def run_mma(args, card, ins) -> None:
         lib, report = libs["as_built"]
         runs += [(name, lib, report, name) for name in LAYOUTS
                  if not args.only or name in args.only]
+    errs = [max_err(fs.launch_fwd(*ins[(16, bf16)], T // 2, "direct"), want[bf16])
+            for bf16 in (False, True)]
     direct = ", ".join(
         f"B={B} {'bf16' if bf16 else 'f32'} "
         f"{(ms := cuda_ms(lambda: fs.launch_fwd(*ins[(B, bf16)], T // 2, 'direct'), args.reps)):.4f}"
         f" ms ({ms / (T + 1) * 1e3:.2f} us/iteration)" for B, bf16 in shapes())
-    print(f"fused_fwd direct route as built: H={H} T={T} {direct} [{card}]", flush=True)
+    print(f"fused_fwd direct route as built: max_abs_err f32 {errs[0]:.3e} bf16 {errs[1]:.3e} at "
+          f"B=16 T={T}; H={H} T={T} {direct} [{card}]", flush=True)
     for name, lib, report, layout in runs:
         def plan(B, bf16, layout=layout):
             units = int(layout[len("units"):]) if layout else None
             return fs.fused_fwd_plan(H, B, bf16, props, units=units)
 
-        def call(B, bf16, lib=lib, tail=0):
+        def call(B, bf16, lib=lib):
             p = plan(B, bf16)
-            return launch_mma(lib, ins[(B, bf16)], p, tail) if p else None
+            return fs.launch_fwd(*ins[(B, bf16)], T // 2, "mma", lib=lib, plan=p) if p else None
 
         errs = []
         for bf16 in (False, True):
             got = call(16, bf16)
             torch.cuda.synchronize()
-            errs.append(max_err(got[0], want[bf16]) if got else float("nan"))
+            errs.append(max_err(got, want[bf16]) if got else float("nan"))
         note = "timing only" if name in TIMING_ONLY else "checked"
         served = [(B, bf16) for B, bf16 in shapes() if plan(B, bf16)]
         times = ", ".join(
@@ -275,10 +262,9 @@ def run_mma(args, card, ins) -> None:
               f"[{card}]", flush=True)
         if name == "phase_clock":
             for B, bf16 in served:
-                xch = call(B, bf16, tail=TAIL_WORDS)[1]
+                c1 = call(B, bf16)[1]
                 torch.cuda.synchronize()
-                words = 2 * B * (H if bf16 else 2 * H)
-                cyc = [v / (T + 1) for v in xch[words:words + len(PHASES)].tolist()]
+                cyc = [v / (T + 1) for v in c1.flatten()[:len(PHASES)].tolist()]
                 print(f"fused_fwd mma phases T={T} B={B} {'bf16' if bf16 else 'f32'} (block 0, "
                       f"thread 0, clock cycles per iteration): "
                       + ", ".join(f"{ph} {c:.0f}" for ph, c in zip(PHASES, cyc))
@@ -287,7 +273,7 @@ def run_mma(args, card, ins) -> None:
 
 def run_sweep(args, card) -> None:
     """Both routes of the shipped build, in turns, over SWEEP_BATCHES."""
-    props = fs.fwd_card("cuda")
+    props = _build.card("cuda")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     for bf16 in (False, True):

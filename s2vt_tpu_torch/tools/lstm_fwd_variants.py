@@ -287,13 +287,15 @@ def run_direct(args, card, ins) -> None:
               f"{times_line(call, args.reps)} [{card}]", flush=True)
 
 
-def launch_mma(lib, args, bf16: bool, plan, tail: int = 0):
+def launch_mma(lib, args, bf16: bool, plan):
     """One launch of an mma variant's kernel: (h seq, gates, c seq, fin) and
-    the exchange with ``tail`` spare words."""
+    the exchange with TAIL_WORDS spare words, where the phase_clock build
+    writes its clocks at every launch."""
     T, B, G = args[0].shape
     dev = args[0].device
     hid = G // 4
-    xch = torch.zeros(2 * B * (hid // 2 if bf16 else hid) + tail, dtype=torch.int64, device=dev)
+    xch = torch.zeros(2 * B * (hid // 2 if bf16 else hid) + TAIL_WORDS, dtype=torch.int64,
+                      device=dev)
     outs = (torch.empty(T, B, hid, device=dev), torch.empty(T, B, G, device=dev),
             torch.empty(T, B, hid, device=dev), torch.empty(2, B, hid, device=dev))
     _build.launch(lib, "lstm_seq_fwd_mma", "lstm_seq_fwd", (*args, *outs, xch),
@@ -317,9 +319,9 @@ def run_mma(args, card, ins) -> None:
                 return fused_rnn.mma_plan(H, B, bf16, props, units=int(layout[len("units"):]))
             return fused_rnn.mma_plan(H, B, bf16, props)
 
-        def call(T, B, bf16, lib=lib, tail=0):
+        def call(T, B, bf16, lib=lib):
             p = plan(B, bf16)
-            return launch_mma(lib, ins[(T, B)], bf16, p, tail) if p else None
+            return launch_mma(lib, ins[(T, B)], bf16, p) if p else None
 
         errs = []
         for bf16 in (False, True):
@@ -337,7 +339,7 @@ def run_mma(args, card, ins) -> None:
               flush=True)
         if name == "phase_clock":
             for T, B, bf16 in served:
-                xch = call(T, B, bf16, tail=TAIL_WORDS)[1]
+                xch = call(T, B, bf16)[1]
                 torch.cuda.synchronize()
                 words = 2 * B * (H // 2 if bf16 else H)
                 cyc = [v / T for v in xch[words:words + len(PHASES)].tolist()]

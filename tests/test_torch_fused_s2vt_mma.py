@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from s2vt_tpu_torch.ops import fused_rnn
+from s2vt_tpu_torch.ops import _build, fused_rnn
 from s2vt_tpu_torch.ops import fused_s2vt as fs
 
 H100 = fused_rnn.CardProps(132, 232448, 15)   # as an H100 SXM reports
@@ -70,7 +70,7 @@ def jax_side():
     f"sms{v.sms}-smem{v.smem_optin}")
 def test_route_by_width_batch_dtype_and_card(hidden, batch, bf16, props, want):
     assert fs.fused_s2vt_fwd_route(hidden, batch, bf16, props) == want
-    assert fs.fused_s2vt_fwd_route(hidden, batch, bf16, fs.FwdCard(*props[:2])) == want
+    assert fs.fused_s2vt_fwd_route(hidden, batch, bf16, _build.Card(*props[:2])) == want
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -354,7 +354,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch, batch, bf16, r
     from torch._subclasses.fake_tensor import FakeTensorMode
     called, routes = [], []
     monkeypatch.setattr(fs, "fused_s2vt_fwd_reference", lambda *a: called.append(a))
-    monkeypatch.setattr(fs, "fwd_card", lambda device: H100)
+    monkeypatch.setattr(fs._build, "card", lambda device: H100)
     plain_launch = fs.launch_fwd
 
     def launch(*a, **kw):
@@ -402,7 +402,10 @@ def test_variant_tool_phase_clock_adds_only_its_lines():
     assert not [d for d in diff if d.startswith("- ")]
     added = "\n".join(d[2:] for d in diff if d.startswith("+ "))
     assert all(f"mark({ph});" in added for ph in range(len(tool.PHASES)))
-    assert tool.TAIL_WORDS >= len(tool.PHASES)
+    # The clocks go over c1's first units, which block 0 owns (U >= 4) and
+    # writes at step 0, and nowhere outside the launch's own buffers.
+    assert "c1[ph] = (float)clk[ph];" in added and "xch[" not in added
+    assert len(tool.PHASES) <= min(fs._MMA_UNITS)
 
 
 # ---------------------------------------------------------------------------
@@ -508,7 +511,7 @@ def test_every_layout_matches_plain_on_card(units, bf16):
     card holds and at one group, at B = 16, 96 and 200 (H = 512; float32 at
     U = 8 only at H = 256, where its weights fit)."""
     _card()
-    props = fs.fwd_card("cuda")
+    props = _build.card("cuda")
     hid = 256 if units == 8 and not bf16 else 512
     for b in (16, 96, 200):
         args = _card_inputs(units + b, b, 20, hid, bf16)
@@ -539,7 +542,7 @@ def test_card_properties_and_the_source_agree():
     """The route's shared memory is the source's, and the card holds its
     plans at H = 512."""
     _card()
-    props = fs.fwd_card("cuda")
+    props = _build.card("cuda")
     lib = fs._kernel_lib()
     for h in (128, 256, 384, 512):
         for units in (4, 8):
