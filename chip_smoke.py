@@ -13,9 +13,10 @@ Phases; a failure in any of them exits non-zero before the result line:
               fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
               sequence kernels at T = L = 80 (beam encode) and T = 159
               (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
-              times beside the bound. The fused forward and the LSTM forward
-              and backward have two routes each (fused_s2vt_fwd_route and
-              lstm_seq_fwd_route: "mma" or "direct"; lstm_seq_bwd_route:
+              times beside the bound. The fused forward, the LSTM forward
+              and backward and the GRU forward have two routes each
+              (fused_s2vt_fwd_route, lstm_seq_fwd_route and
+              gru_seq_fwd_route: "mma" or "direct"; lstm_seq_bwd_route:
               "cluster" in bf16, "direct"): each check call's route is
               printed and its launch held to it, the other route is checked
               on the same inputs (its launch held to it too) and timed beside
@@ -52,7 +53,9 @@ Phases; a failure in any of them exits non-zero before the result line:
   8. gru      GRU S2VT: cli.train --rnn_type gru on the corpus of phase 4
               (launch counts read around it: both RNNs run the GRU sequence
               kernels, forward in every train and validation step, backward
-              in every train step), greedy_eval and beam_eval of its final
+              in every train step; every forward launch, here and in
+              greedy_eval and beam_eval, on the route its wrapper takes),
+              greedy_eval and beam_eval of its final
               checkpoint against the plain route, the kernel route's
               gradients against the plain route's, and train-step, greedy and
               beam times.
@@ -85,8 +88,8 @@ mma route.
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel; and
 every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
-9 and 10, the LSTM sequence kernels in phases 4-9) to the route its wrapper
-takes for that batch and mode.
+9 and 10, the LSTM sequence kernels in phases 4-9, the GRU forward in phase
+8) to the route its wrapper takes for that batch and mode.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -172,7 +175,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # Kernel #9's launches per VGG16 forward on each of its routes.
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
-ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd", "fused_s2vt_fwd")
+ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd", "fused_s2vt_fwd",
+          "gru_seq_fwd")
 
 
 def card_line() -> str:
@@ -275,11 +279,15 @@ def seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "di
     return _bound(nbytes, flops, dtype_name)
 
 
-def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
-    """Least time for the GRU forward: x_proj [T, B, 3H], W_hh, b_hh and h0
-    read once; the h, gate and gh_n sequences and hT written once, all
-    float32; against the 2*T*B*3H*H operations of the recurrent product at
-    the peak rate of its operand type (bf16 operands in bf16 mode)."""
+def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "direct"):
+    """Least time for the GRU forward on ``route``: x_proj [T, B, 3H], W_hh,
+    b_hh and h0 read once; the h, gate and gh_n sequences and hT written
+    once, all float32; against the 2*T*B*3H*H operations of the recurrent
+    product at the peak rate of its operand type (bf16 operands in bf16
+    mode, on the tensor cores on the "mma" route). Float32 runs on the CUDA
+    cores on both routes (the "mma" route forms its sums in the direct
+    route's order), so both have the float32 peak's bound."""
+    assert route in ("mma", "direct"), route
     G = 3 * hid
     nbytes = 4 * (T * B * G + G * hid + G + B * hid             # x_proj, W_hh, b_hh, h0
                   + T * B * G + 2 * T * B * hid + B * hid)      # gates; h, gh_n seqs; hT
@@ -607,7 +615,8 @@ def seq_bwd_inputs(torch, cell, args, got, device, gen):
 # The two routes of each routed sequence kernel: (its route function, the
 # launcher of one route by name, the routes).
 SEQ_ROUTES = {"lstm_seq_fwd": ("lstm_seq_fwd_route", "launch_fwd", ("mma", "direct")),
-              "lstm_seq_bwd": ("lstm_seq_bwd_route", "launch_bwd", ("cluster", "direct"))}
+              "lstm_seq_bwd": ("lstm_seq_bwd_route", "launch_bwd", ("cluster", "direct")),
+              "gru_seq_fwd": ("gru_seq_fwd_route", "launch_fwd", ("mma", "direct"))}
 
 
 # Every routed recurrent kernel whose main-path launches a phase holds to
@@ -635,10 +644,11 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
     """The per-layer LSTM (or GRU) sequence kernels against their plain
     versions at every T, batch and mode (float32, and bf16 product operands);
     times at ``timed``. The backward's inputs come from the forward kernel's
-    run, so its gates are real states. The LSTM kernels have two routes
-    each: every check call's route is printed and its launch held to it,
-    the other route is checked on the same inputs, and both are timed in
-    turns (routed, other, other, routed)."""
+    run, so its gates are real states. The kernels of SEQ_ROUTES (both LSTM
+    kernels, the GRU forward) have two routes each: every check call's
+    route is printed and its launch held to it, the other route is checked
+    on the same inputs, and both are timed in turns (routed, other, other,
+    routed)."""
     fwd_name, bwd_name, _, cudnn_cell = SEQ_CELLS[cell]
     mod = _module(fwd_name)
     fwd, bwd = getattr(mod, fwd_name), getattr(mod, bwd_name)
@@ -647,7 +657,6 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
               bwd_name: gru_seq_bwd_bound_ms if cell == "gru" else seq_bwd_bound_ms}
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(4321 if cell == "lstm" else 8642)
-    routed = cell == "lstm" and device.type == "cuda"
     errors, times = {}, {}
 
     def checked(kernel, fn, ref, fargs, B, name, T):
@@ -655,6 +664,7 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
         its route held, then the other route on the same inputs. Returns
         (outputs, route)."""
         bf16 = name == "bfloat16"
+        routed = kernel in SEQ_ROUTES and device.type == "cuda"
         before = read_routes(kernel) if routed else None
         got = fn(*fargs, bf16)
         sync()
@@ -1332,9 +1342,10 @@ def s2vt_launches(rnn_type, num_layers, length=LENGTH):
 def hold_seq_routes(routes: dict, per_batch: dict, device, label: str, card: str,
                     hid: int = H, bf16: bool = False) -> None:
     """Phases 3-10: each launch of the routed recurrent kernels (the LSTM
-    sequence kernels, the fused forward) on the route its wrapper takes for
-    that batch and mode. ``routes`` holds each kernel's route counts of the
-    run, ``per_batch`` {kernel: {B: launches at that B}}."""
+    sequence kernels, the GRU forward, the fused forward) on the route its
+    wrapper takes for that batch and mode. ``routes`` holds each kernel's
+    route counts of the run, ``per_batch`` {kernel: {B: launches at that
+    B}}."""
     if device.type != "cuda":
         return
     print(f"{label}: routed kernel launches {routes} [{card}]", flush=True)
@@ -1898,20 +1909,21 @@ def main() -> int:
                              TRAIN_EPOCHS, timed=TIMED_BATCHES, reps=5, card=card)
     stamp("phase 7")
     # 8. GRU S2VT: kernels #5 and #6 on their main paths (training; decode)
-    gru_launches, gru_beam_launches, _ = phase_train(
+    gru_launches, _, gru_routes = phase_train(
         torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS, TRAIN_EPOCHS,
         batches=(MAIN_BATCH,), reps=5, card=card, dtypes=("float32",), rnn_type="gru")
     stamp("phase 8")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
-    # at the T of that path (#8: at V = 10240; #9: VGG16's 13 layers at N =
-    # 80, summed). The attention-decoder kernel has no library time.
+    # at the T of that path (#5: GRU training, where 24 of its 32 phase-8
+    # launches are; #8: at V = 10240; #9: VGG16's 13 layers at N = 80,
+    # summed). The attention-decoder kernel has no library time.
     main_path = {"fused_s2vt_fwd": (launches, 2 * LENGTH - 1),
                  "fused_s2vt_bwd": (launches, 2 * LENGTH - 1),
                  "lstm_seq_fwd": ({"lstm_seq_fwd": beam_launches}, LENGTH),
                  "lstm_seq_bwd": (launches2, 2 * LENGTH - 1),
                  "att_decode_fwd": (att_launches, LENGTH - 1),
-                 "gru_seq_fwd": (gru_beam_launches, LENGTH),
+                 "gru_seq_fwd": (gru_launches, 2 * LENGTH - 1),
                  "gru_seq_bwd": (gru_launches, 2 * LENGTH - 1),
                  "argmax_linear": (serve_launches, VOCAB),
                  "conv3x3_bn_relu": (caption_launches, 0)}
@@ -1936,6 +1948,8 @@ def main() -> int:
             rows[-1]["route_launches"] = routes2["lstm_seq_bwd"]
         if name == "fused_s2vt_fwd":
             rows[-1]["route_launches"] = routes1["fused_s2vt_fwd"]
+        if name == "gru_seq_fwd":
+            rows[-1]["route_launches"] = gru_routes["gru_seq_fwd"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@ outside the kernel (``pallas_gru.py:236-240``).
 (``csrc/gru_seq_fwd.cu``, ``csrc/gru_seq_bwd.cu``) for CUDA tensors and run
 ``gru_seq_fwd_reference`` / ``gru_seq_bwd_reference``, the same recurrences
 in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception.
+exception. The forward has two kernels, its "mma" and "direct" routes,
+picked by ``gru_seq_fwd_route`` from the shapes, the mode and the card
+before the launch.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from s2vt_tpu_torch.ops import _build
-from s2vt_tpu_torch.ops.fused_rnn import _check_shapes
+from s2vt_tpu_torch.ops.fused_rnn import CardProps, _check_shapes, mma_plan
 from s2vt_tpu_torch.ops.fused_s2vt import units_per_block
 from s2vt_tpu_torch.ops.layers import mm_operand
 from s2vt_tpu_torch.ops.rnn import LSTMState, input_projection
@@ -132,16 +134,24 @@ def gru_seq_bwd_reference(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16: bool
     return dxp, dghn, dh_s
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_lib() -> ctypes.CDLL:
-    """The forward kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_FWD_LIB_NAME)
+def set_fwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the forward library's entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.gru_seq_fwd.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.gru_seq_fwd.restype = ci
     lib.gru_seq_fwd_smem_bytes.argtypes = [ci, ci]
     lib.gru_seq_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.gru_seq_fwd_mma.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+    lib.gru_seq_fwd_mma.restype = ci
+    lib.gru_seq_fwd_mma_smem_bytes.argtypes = [ci] * 4
+    lib.gru_seq_fwd_mma_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib() -> ctypes.CDLL:
+    """The forward kernel's library (built on first use) with its C signatures."""
+    return set_fwd_signatures(_build.load(_FWD_LIB_NAME))
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,18 +174,8 @@ def _gru_seq_fwd_impl(x_proj_t, w_hh, b_hh, h0, compute_bf16):
     _check_fwd_args(x_proj_t, w_hh, b_hh, h0)
     _build.check_cuda("gru_seq_fwd", (x_proj_t, w_hh, b_hh, h0))
     T, B, G = x_proj_t.shape
-    H = G // 3
-    dev = x_proj_t.device
-    outs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
-    ghn = torch.empty_like(outs)
-    gates = torch.empty_like(x_proj_t)
-    hT = torch.empty(B, H, dtype=torch.float32, device=dev)
-    units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
-    _build.launch(_fwd_lib(), "gru_seq_fwd", "gru_seq_fwd",
-                  (x_proj_t, w_hh, b_hh, h0, outs, gates, ghn, hT),
-                  (T, B, H, units, int(compute_bf16)))
-    gru_seq_fwd.launches += 1
-    return outs, gates, ghn, hT
+    route = gru_seq_fwd_route(G // 3, B, compute_bf16, x_proj_t.device)
+    return launch_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16, route)
 
 
 def _gru_seq_fwd_fake(x_proj_t, w_hh, b_hh, h0, compute_bf16):
@@ -193,13 +193,98 @@ def gru_seq_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):
     """The forward (``gru_seq_fwd_reference``'s contract), a ``torch.library``
     operator so that an exported decode holds it.
 
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``gru_seq_fwd.launches``; CPU tensors run the plain version."""
+    CUDA tensors (contiguous) launch the kernel of ``gru_seq_fwd_route``
+    once and add one to ``gru_seq_fwd.launches`` and to
+    ``gru_seq_fwd.route_launches[route]``; CPU tensors run the plain
+    version."""
     _build.check_device("gru_seq_fwd", x_proj_t)
     return _gru_seq_fwd_op(x_proj_t, w_hh, b_hh, h0, compute_bf16)
 
 
 gru_seq_fwd.launches = 0
+gru_seq_fwd.route_launches = {"mma": 0, "direct": 0}
+
+_GATES = 3                         # gate rows per unit: mma_plan's layout of csrc/gru_seq_fwd.cu
+_MMA_MAX_BATCH = 200               # the largest batch the mma route was measured faster at
+
+
+def _measured_units(batch: int, compute_bf16: bool) -> int:
+    """The U that tools/gru_fwd_variants.py --route layouts measured fastest
+    (or within 2.5 % of it) at H = 512, T = 159 on an NVIDIA H100 80GB HBM3
+    at 700 W: U = 8 up to B = 32 in both modes (B = 16 float32: 0.5624 ms,
+    U = 16 0.5671, U = 4 0.5935; bf16 0.4206, 0.4628, 0.4489), then 16 in
+    float32 (B = 96: 2.0551, U = 8 2.1795), 16 up to B = 128 and 32 above
+    in bf16 (B = 96: 0.6393, U = 32 0.6820; B = 200: 0.9464, U = 16
+    1.0381). More groups of fewer rows: a block polls fewer rows and waits
+    for fewer blocks, and its products stay U x rows."""
+    if batch <= 32:
+        return 8
+    return 16 if not compute_bf16 or batch <= 128 else 32
+
+
+def gru_mma_plan(hidden: int, batch: int, compute_bf16: bool, props,
+                 units: Optional[int] = None):
+    """``fused_rnn.mma_plan`` with three gate rows per unit: at ``units``, or
+    at the measured U where that one serves, else at the U mma_plan picks."""
+    if units is None:
+        plan = mma_plan(hidden, batch, compute_bf16, props,
+                        units=_measured_units(batch, compute_bf16), gates=_GATES)
+        if plan is not None:
+            return plan
+    return mma_plan(hidden, batch, compute_bf16, props, units=units, gates=_GATES)
+
+
+def gru_seq_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
+    mode ``compute_bf16`` on ``device`` (a card, or its ``CardProps`` or
+    ``_build.Card``): "mma" where ``gru_mma_plan`` serves and B <= 200,
+    else "direct" (the grid-synchronised kernel on the CUDA cores). On an
+    NVIDIA H100 80GB HBM3 at 700 W the mma route was faster in all 60 cells
+    of tools/gru_fwd_variants.py --route sweep (H = 512, B in 1, 2, 4, 8,
+    16, 24, 32, 48, 64, 80, 96, 112, 128, 160, 200, T = 80 and 159, both
+    modes, the two routes in turns): float32 B = 16 0.2657 against 0.3393
+    ms at T = 80 and 0.5704 against 0.8542 at T = 159, B = 96 1.1454
+    against 2.2333 at T = 80; bf16 B = 16 0.2169 against 0.3682 and B = 96
+    0.3482 against 2.0958 at T = 80; the closest float32 B = 4, T = 80
+    (0.2322 against 0.2491), the widest bf16 B = 200, T = 159 (0.9754
+    against 8.5819). Larger batches were not measured. Chosen before the
+    launch, from the shapes, the mode and the card alone."""
+    if batch > _MMA_MAX_BATCH:
+        return "direct"
+    props = device if isinstance(device, (CardProps, _build.Card)) else _build.card(device)
+    return "mma" if gru_mma_plan(hidden, batch, compute_bf16, props) else "direct"
+
+
+def launch_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16, route, lib=None, plan=None):
+    """One launch of ``route``'s kernel on CUDA tensors checked by the
+    caller (or, to time one route beside the other, by chip_smoke.py and
+    the variant tool, which may pass its own build as ``lib`` and an mma
+    ``plan``). Returns (h seq, gates, gh_n seq, hT)."""
+    T, B, G = x_proj_t.shape
+    H = G // 3
+    dev = x_proj_t.device
+    outs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    ghn = torch.empty_like(outs)
+    gates = torch.empty_like(x_proj_t)
+    hT = torch.empty(B, H, dtype=torch.float32, device=dev)
+    tensors = (x_proj_t, w_hh, b_hh, h0, outs, gates, ghn, hT)
+    if route == "mma":
+        plan = plan or gru_mma_plan(H, B, compute_bf16, _build.card(dev))
+        if plan is None:
+            raise ValueError(f"gru_seq_fwd: the mma route does not serve H={H}, B={B}")
+        # This launch's exchange: h tagged with its step, by step parity (in
+        # bf16 two units per word); zeros tag nothing.
+        xch = torch.zeros(2 * B * (H // 2 if compute_bf16 else H), dtype=torch.int64,
+                          device=dev)
+        _build.launch(lib or _fwd_lib(), "gru_seq_fwd_mma", "gru_seq_fwd", tensors + (xch,),
+                      (T, B, H, plan.units, plan.groups, plan.tiles, int(compute_bf16)))
+    else:
+        units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
+        _build.launch(lib or _fwd_lib(), "gru_seq_fwd", "gru_seq_fwd", tensors,
+                      (T, B, H, units, int(compute_bf16)))
+    gru_seq_fwd.launches += 1
+    gru_seq_fwd.route_launches[route] += 1
+    return outs, gates, ghn, hT
 
 
 def gru_seq_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16: bool):

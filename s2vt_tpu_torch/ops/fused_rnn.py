@@ -346,14 +346,16 @@ def _bwd_units(hidden: int, device: torch.device) -> int:
     return _bwd_lib().lstm_seq_bwd_units_per_block(hidden, sms)
 
 
-# The forward's "mma" route (csrc/lstm_seq_fwd.cu, namespace mma_route): its
-# blocks and what each holds.
-_MMA_UNITS = (4, 8, 16, 32)        # instantiated hidden units per block (U)
+# The "mma" routes of the per-layer forwards (namespace mma_route of
+# csrc/lstm_seq_fwd.cu, 4 gate rows per unit, and of csrc/gru_seq_fwd.cu, 3):
+# their blocks and what each holds.
+_MMA_UNITS = (4, 8, 16, 32)        # instantiated hidden units per block (U); 32 in bf16 only
 _MMA_THREADS = 256
-_MMA_SLOTS = 16                    # (cell, gate) pairs a thread runs per step
+_MMA_CELL_LANES = {4: 4, 3: 1}     # per gate count: the lanes that run one cell
+_MMA_SLOTS = {4: 16, 3: 4}         # per gate count: (cell, lane) slots a thread runs per step
 _MMA_MAX_TILES = 4                 # m16 row tiles staged per pass
 _MMA_MAX_HIDDEN = 512              # a lane's 16-byte exchange loads cover a row
-_MMA_MAX_BATCH = 128               # the largest batch it was measured faster at
+_MMA_MAX_BATCH = 128               # the largest batch it was measured faster at (LSTM)
 
 
 class MmaPlan(NamedTuple):
@@ -368,45 +370,55 @@ class MmaPlan(NamedTuple):
     passes: int
 
 
-def mma_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool) -> int:
+def mma_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool,
+                   gates: int = 4) -> int:
     """Dynamic shared memory of one mma-route block (``smem_bytes`` in the
-    source): the block's 4U gate rows of W_hh and ``tiles`` m16 tiles of h,
-    in the operand type with 16 bytes of padding per row, and the gate sums
-    (in bf16 one k share per warp of a column tile; float32 sums whole)."""
+    source) of the forward with ``gates`` gate rows per unit: the block's
+    gates x U rows of W_hh (padded to whole n8 tiles) and ``tiles`` m16 tiles
+    of h, in the operand type with 16 bytes of padding per row, and the gate
+    sums (in bf16 one k share per warp of a column tile; float32 sums
+    whole)."""
     es, pad = (2, 8) if compute_bf16 else (4, 4)
-    n = 4 * units
+    n = -(-gates * units // 8) * 8
     n_tiles = n // 8
-    shares = 8 // (n_tiles // max(1, n_tiles // 8)) if compute_bf16 else 1
+    per_warp = 3 if n_tiles % 3 == 0 else max(1, n_tiles // 8)   # n8 tiles per warp
+    shares = 8 // (n_tiles // per_warp) if compute_bf16 else 1
     return (n + 16 * tiles) * (hidden + pad) * es + 4 * shares * 16 * tiles * (n + 4)
 
 
 def mma_plan(hidden: int, batch: int, compute_bf16: bool, props: CardProps,
-             units: Optional[int] = None) -> Optional[MmaPlan]:
+             units: Optional[int] = None, gates: int = 4) -> Optional[MmaPlan]:
     """The mma route's layout for hidden size ``hidden`` and batch ``batch``
-    on a card of ``props``, or None where it does not serve: 128 <= H <=
-    512, H % 128 == 0. For each U (``units``, or each instantiated one) the
-    batch splits into as many groups as the card's SMs hold (G H / U <=
-    SMs), a block stages as many of its group's m16 tiles per pass as its
-    shared memory and its 16 pairs per thread allow; of these the plan with
-    the fewest padded products per block (m16 tiles per group x U), then
-    passes, then rows per group is chosen (on an NVIDIA H100 80GB HBM3 at H = 512,
+    on a card of ``props`` (anything with ``sms`` and ``smem_optin``), for
+    the forward with ``gates`` gate rows per unit (4: LSTM, kernel #3; 3:
+    GRU, kernel #5), or None where it does not serve: 128 <= H <= 512,
+    H % 128 == 0. For each U (``units``, or each instantiated one; 32 only in
+    bf16) the batch splits into as many groups as the card's SMs hold
+    (G H / U <= SMs), a block stages as many of its group's m16 tiles per
+    pass as its shared memory and its thread slots allow (16 (cell, gate)
+    pairs per thread for the LSTM's four lanes per cell, 4 cells for the
+    GRU's one lane); of these the plan with the fewest padded products per
+    block (m16 tiles per group x U), then passes, then rows per group is
+    chosen (on an NVIDIA H100 80GB HBM3 at H = 512,
     tools/lstm_fwd_variants.py: U = 4 fastest at B = 16, U = 8 at B = 96 in
     float32)."""
     if not (128 <= hidden <= _MMA_MAX_HIDDEN and hidden % 128 == 0 and batch >= 1):
         return None
+    lanes = _MMA_CELL_LANES[gates]
     plans = []
     for u in (units,) if units else _MMA_UNITS:
         groups = min(props.sms // (hidden // u), batch)
-        if u not in _MMA_UNITS or groups < 1:
+        if u not in _MMA_UNITS or (u == 32 and not compute_bf16) or groups < 1:
             continue
         rows = -(-batch // groups)
         groups = -(-batch // rows)
         m_tiles = -(-rows // 16)
         for tiles in range(min(m_tiles, _MMA_MAX_TILES), 0, -1):
             passes = -(-m_tiles // tiles)
-            slots = passes * tiles * u // 4
-            if (slots <= _MMA_SLOTS
-                    and mma_smem_bytes(hidden, u, tiles, compute_bf16) <= props.smem_optin):
+            slots = passes * -(-16 * tiles * u * lanes // _MMA_THREADS)
+            if (slots <= _MMA_SLOTS[gates]
+                    and mma_smem_bytes(hidden, u, tiles, compute_bf16, gates)
+                    <= props.smem_optin):
                 plans.append(MmaPlan(u, groups, rows, tiles, passes))
                 break
     return min(plans, key=lambda p: (-(-p.rows // 16) * p.units, p.passes, p.rows),
