@@ -14,10 +14,11 @@ Phases; a failure in any of them exits non-zero before the result line:
               sequence kernels at T = L = 80 (beam encode) and T = 159
               (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
               times beside the bound. The fused forward, the LSTM forward
-              and backward and the GRU forward have two routes each
-              (fused_s2vt_fwd_route, lstm_seq_fwd_route and
-              gru_seq_fwd_route: "mma" or "direct"; lstm_seq_bwd_route:
-              "cluster" in bf16, "direct"): each check call's route is
+              and backward and the GRU forward and backward have two routes
+              each (fused_s2vt_fwd_route, lstm_seq_fwd_route,
+              gru_seq_fwd_route and gru_seq_bwd_route: "mma" or "direct";
+              lstm_seq_bwd_route: "cluster" in bf16, "direct"): each check
+              call's route is
               printed and its launch held to it, the other route is checked
               on the same inputs (its launch held to it too) and timed beside
               the routed kernel, in turns.
@@ -53,8 +54,9 @@ Phases; a failure in any of them exits non-zero before the result line:
   8. gru      GRU S2VT: cli.train --rnn_type gru on the corpus of phase 4
               (launch counts read around it: both RNNs run the GRU sequence
               kernels, forward in every train and validation step, backward
-              in every train step; every forward launch, here and in
-              greedy_eval and beam_eval, on the route its wrapper takes),
+              in every train step; every forward and backward launch, here
+              and in greedy_eval and beam_eval, on the route its wrapper
+              takes),
               greedy_eval and beam_eval of its final
               checkpoint against the plain route, the kernel route's
               gradients against the plain route's, and train-step, greedy and
@@ -88,8 +90,8 @@ mma route.
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel; and
 every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
-9 and 10, the LSTM sequence kernels in phases 4-9, the GRU forward in phase
-8) to the route its wrapper takes for that batch and mode.
+9 and 10, the LSTM sequence kernels in phases 4-9, the GRU forward and
+backward in phase 8) to the route its wrapper takes for that batch and mode.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -176,7 +178,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
 ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd", "fused_s2vt_fwd",
-          "gru_seq_fwd")
+          "gru_seq_fwd", "gru_seq_bwd")
 
 
 def card_line() -> str:
@@ -244,8 +246,8 @@ def fused_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
     return _bound(nbytes, flops, dtype_name)
 
 
-def seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "direct"):
-    """Least time for the per-layer forward on ``route``: x_proj [T, B, 4H],
+def seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
+    """Least time for the per-layer forward on either route: x_proj [T, B, 4H],
     W_hh and h0, c0 read once; the h, gate and c sequences and hT, cT
     written once, all float32; against the 2*T*B*4H*H operations of the
     recurrent product at the peak rate of its operand type (bf16 operands
@@ -255,7 +257,6 @@ def seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "di
     mma route as three TF32 passes (the variant tool's ``tf32x3``) would
     have 3 x the operations at the TF32 peak. Returns (ms, by, bytes, the
     2*T*B*4H*H operations)."""
-    assert route in ("mma", "direct"), route
     G = 4 * hid
     nbytes = 4 * (T * B * G + G * hid + 2 * B * hid            # x_proj, W_hh, h0, c0
                   + T * B * G + 2 * T * B * hid + 2 * B * hid)  # gates; h, c seqs; hT, cT
@@ -279,15 +280,14 @@ def seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "di
     return _bound(nbytes, flops, dtype_name)
 
 
-def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str = "direct"):
-    """Least time for the GRU forward on ``route``: x_proj [T, B, 3H], W_hh,
+def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
+    """Least time for the GRU forward on either route: x_proj [T, B, 3H], W_hh,
     b_hh and h0 read once; the h, gate and gh_n sequences and hT written
     once, all float32; against the 2*T*B*3H*H operations of the recurrent
     product at the peak rate of its operand type (bf16 operands in bf16
     mode, on the tensor cores on the "mma" route). Float32 runs on the CUDA
     cores on both routes (the "mma" route forms its sums in the direct
     route's order), so both have the float32 peak's bound."""
-    assert route in ("mma", "direct"), route
     G = 3 * hid
     nbytes = 4 * (T * B * G + G * hid + G + B * hid             # x_proj, W_hh, b_hh, h0
                   + T * B * G + 2 * T * B * hid + B * hid)      # gates; h, gh_n seqs; hT
@@ -295,10 +295,14 @@ def gru_seq_fwd_bound_ms(B: int, T: int, hid: int, dtype_name: str, route: str =
 
 
 def gru_seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
-    """Least time for the GRU backward: gates [T, B, 3H], gh_n, h_prev and
-    dout [T, B, H], W_hh and dhT read once; dxp [T, B, 3H], dghn [T, B, H] and
-    dh0 written once, all float32; against the 2*T*B*3H*H operations of the
-    recurrent product at the peak rate of its operand type."""
+    """Least time for the GRU backward on either route: gates [T, B, 3H], gh_n,
+    h_prev and dout [T, B, H], W_hh and dhT read once; dxp [T, B, 3H], dghn
+    [T, B, H] and dh0 written once, all float32; against the 2*T*B*3H*H
+    operations of the recurrent product at the peak rate of its operand type
+    (bf16 operands in bf16 mode, on the tensor cores on the "mma" route).
+    Float32 runs on the CUDA cores on both routes (the "mma" route forms its
+    sums in the direct route's order), so both have the float32 peak's
+    bound."""
     G = 3 * hid
     nbytes = 4 * (T * B * G + 3 * T * B * hid + G * hid + B * hid    # inputs
                   + T * B * G + T * B * hid + B * hid)               # dxp, dghn, dh0
@@ -616,7 +620,8 @@ def seq_bwd_inputs(torch, cell, args, got, device, gen):
 # launcher of one route by name, the routes).
 SEQ_ROUTES = {"lstm_seq_fwd": ("lstm_seq_fwd_route", "launch_fwd", ("mma", "direct")),
               "lstm_seq_bwd": ("lstm_seq_bwd_route", "launch_bwd", ("cluster", "direct")),
-              "gru_seq_fwd": ("gru_seq_fwd_route", "launch_fwd", ("mma", "direct"))}
+              "gru_seq_fwd": ("gru_seq_fwd_route", "launch_fwd", ("mma", "direct")),
+              "gru_seq_bwd": ("gru_seq_bwd_route", "launch_bwd", ("mma", "direct"))}
 
 
 # Every routed recurrent kernel whose main-path launches a phase holds to
@@ -645,7 +650,7 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
     versions at every T, batch and mode (float32, and bf16 product operands);
     times at ``timed``. The backward's inputs come from the forward kernel's
     run, so its gates are real states. The kernels of SEQ_ROUTES (both LSTM
-    kernels, the GRU forward) have two routes each: every check call's
+    and both GRU kernels) have two routes each: every check call's
     route is printed and its launch held to it, the other route is checked
     on the same inputs, and both are timed in turns (routed, other, other,
     routed)."""
@@ -655,6 +660,13 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
     fwd_ref, bwd_ref = getattr(mod, fwd_name + "_reference"), getattr(mod, bwd_name + "_reference")
     bounds = {fwd_name: gru_seq_fwd_bound_ms if cell == "gru" else seq_fwd_bound_ms,
               bwd_name: gru_seq_bwd_bound_ms if cell == "gru" else seq_bwd_bound_ms}
+
+    def bound_of(kernel, B, T, name, route):
+        """The kernel's bound at this shape; of these only the LSTM
+        backward's depends on the route (float32 as 3xTF32 on "cluster")."""
+        if cell == "lstm" and kernel == bwd_name:
+            return seq_bwd_bound_ms(B, T, hid, name, route)
+        return bounds[kernel](B, T, hid, name)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(4321 if cell == "lstm" else 8642)
     errors, times = {}, {}
@@ -725,10 +737,9 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
                                  (lambda: fn(*fargs, bf16), other_fn, other_fn,
                                   lambda: fn(*fargs, bf16))]
                         k_ms, o_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-                        bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name, route)
                     else:
                         k_ms = cuda_ms(torch, lambda: fn(*fargs, bf16), reps)
-                        bound, bound_by, nbytes, flops = bounds[kernel](B, T, hid, name)
+                    bound, bound_by, nbytes, flops = bound_of(kernel, B, T, name, route)
                     p_ms = cuda_ms(torch, lambda: ref(*fargs, bf16), max(1, reps // 5), warmup=1)
                     extra, steps = {}, T
                     if kernel == bwd_name:
@@ -738,7 +749,7 @@ def phase_seq_kernels(torch, device, hid, seq_lens, batches, timed, reps, card, 
                     times[(kernel, B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib,
                                                        bound_ms=bound, bound_by=bound_by, **extra)
                     if route is not None:
-                        o_bound = bounds[kernel](B, T, hid, name, other)[0]
+                        o_bound = bound_of(kernel, B, T, name, other)[0]
                         times[(kernel, B, name, T)].update(route=route, other_route=other,
                                                            other_ms=o_ms, other_bound_ms=o_bound)
                         route_note = (f"route={route} {other}_route_ms={o_ms:.4f} "
@@ -1342,7 +1353,7 @@ def s2vt_launches(rnn_type, num_layers, length=LENGTH):
 def hold_seq_routes(routes: dict, per_batch: dict, device, label: str, card: str,
                     hid: int = H, bf16: bool = False) -> None:
     """Phases 3-10: each launch of the routed recurrent kernels (the LSTM
-    sequence kernels, the GRU forward, the fused forward) on the route its
+    and GRU sequence kernels, the fused forward) on the route its
     wrapper takes for that batch and mode. ``routes`` holds each kernel's
     route counts of the run, ``per_batch`` {kernel: {B: launches at that
     B}}."""
@@ -1948,8 +1959,8 @@ def main() -> int:
             rows[-1]["route_launches"] = routes2["lstm_seq_bwd"]
         if name == "fused_s2vt_fwd":
             rows[-1]["route_launches"] = routes1["fused_s2vt_fwd"]
-        if name == "gru_seq_fwd":
-            rows[-1]["route_launches"] = gru_routes["gru_seq_fwd"]
+        if name in ("gru_seq_fwd", "gru_seq_bwd"):
+            rows[-1]["route_launches"] = gru_routes[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,9 +27,9 @@ outside the kernel (``pallas_gru.py:236-240``).
 (``csrc/gru_seq_fwd.cu``, ``csrc/gru_seq_bwd.cu``) for CUDA tensors and run
 ``gru_seq_fwd_reference`` / ``gru_seq_bwd_reference``, the same recurrences
 in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception. The forward has two kernels, its "mma" and "direct" routes,
-picked by ``gru_seq_fwd_route`` from the shapes, the mode and the card
-before the launch.
+exception. Each has two kernels, its "mma" and "direct" routes, picked by
+``gru_seq_fwd_route`` and ``gru_seq_bwd_route`` from the shapes, the mode
+and the card before the launch.
 """
 
 from __future__ import annotations
@@ -154,10 +154,8 @@ def _fwd_lib() -> ctypes.CDLL:
     return set_fwd_signatures(_build.load(_FWD_LIB_NAME))
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    """The backward kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_BWD_LIB_NAME)
+def set_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the backward library's entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.gru_seq_bwd.argtypes = [vp] * 9 + [ci] * 6 + [vp]
     lib.gru_seq_bwd.restype = ci
@@ -165,7 +163,17 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.gru_seq_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.gru_seq_bwd_units_per_block.argtypes = [ci, ci]
     lib.gru_seq_bwd_units_per_block.restype = ci
+    lib.gru_seq_bwd_mma.argtypes = [vp] * 10 + [ci] * 8 + [vp]
+    lib.gru_seq_bwd_mma.restype = ci
+    lib.gru_seq_bwd_mma_smem_bytes.argtypes = [ci] * 4
+    lib.gru_seq_bwd_mma_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernel's library (built on first use) with its C signatures."""
+    return set_bwd_signatures(_build.load(_BWD_LIB_NAME))
 
 
 def _gru_seq_fwd_impl(x_proj_t, w_hh, b_hh, h0, compute_bf16):
@@ -205,7 +213,7 @@ gru_seq_fwd.launches = 0
 gru_seq_fwd.route_launches = {"mma": 0, "direct": 0}
 
 _GATES = 3                         # gate rows per unit: mma_plan's layout of csrc/gru_seq_fwd.cu
-_MMA_MAX_BATCH = 200               # the largest batch the mma route was measured faster at
+_MMA_MAX_BATCH = 200               # the largest batch either mma route was measured faster at
 
 
 def _measured_units(batch: int, compute_bf16: bool) -> int:
@@ -222,16 +230,37 @@ def _measured_units(batch: int, compute_bf16: bool) -> int:
     return 16 if not compute_bf16 or batch <= 128 else 32
 
 
-def gru_mma_plan(hidden: int, batch: int, compute_bf16: bool, props,
-                 units: Optional[int] = None):
-    """``fused_rnn.mma_plan`` with three gate rows per unit: at ``units``, or
-    at the measured U where that one serves, else at the U mma_plan picks."""
+@functools.lru_cache(maxsize=None)
+def _plan(hidden: int, batch: int, compute_bf16: bool, props, units: Optional[int],
+          measured_units, smem_bytes):
+    """``fused_rnn.mma_plan`` with three gate rows per unit and the block's
+    ``smem_bytes`` (None: the forward's): at ``units``, or at
+    ``measured_units(batch, compute_bf16)`` where that one serves, else at
+    the U mma_plan picks. Cached: the route and its launch ask for the same
+    plan."""
     if units is None:
         plan = mma_plan(hidden, batch, compute_bf16, props,
-                        units=_measured_units(batch, compute_bf16), gates=_GATES)
+                        units=measured_units(batch, compute_bf16), gates=_GATES,
+                        smem_bytes=smem_bytes)
         if plan is not None:
             return plan
-    return mma_plan(hidden, batch, compute_bf16, props, units=units, gates=_GATES)
+    return mma_plan(hidden, batch, compute_bf16, props, units=units, gates=_GATES,
+                    smem_bytes=smem_bytes)
+
+
+def _route(plan, hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """"mma" where ``plan`` lays the launch out on ``device`` (a card, or its
+    ``CardProps`` or ``_build.Card``) and B <= 200, else "direct"."""
+    if batch > _MMA_MAX_BATCH:
+        return "direct"
+    props = device if isinstance(device, (CardProps, _build.Card)) else _build.card(device)
+    return "mma" if plan(hidden, batch, compute_bf16, props) else "direct"
+
+
+def gru_mma_plan(hidden: int, batch: int, compute_bf16: bool, props,
+                 units: Optional[int] = None):
+    """The forward's mma-route layout (``_plan`` at ``_measured_units``)."""
+    return _plan(hidden, batch, compute_bf16, props, units, _measured_units, None)
 
 
 def gru_seq_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
@@ -249,10 +278,7 @@ def gru_seq_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> st
     (0.2322 against 0.2491), the widest bf16 B = 200, T = 159 (0.9754
     against 8.5819). Larger batches were not measured. Chosen before the
     launch, from the shapes, the mode and the card alone."""
-    if batch > _MMA_MAX_BATCH:
-        return "direct"
-    props = device if isinstance(device, (CardProps, _build.Card)) else _build.card(device)
-    return "mma" if gru_mma_plan(hidden, batch, compute_bf16, props) else "direct"
+    return _route(gru_mma_plan, hidden, batch, compute_bf16, device)
 
 
 def launch_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16, route, lib=None, plan=None):
@@ -290,41 +316,127 @@ def launch_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16, route, lib=None, plan=Non
 def gru_seq_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16: bool):
     """The backward (``gru_seq_bwd_reference``'s contract).
 
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``gru_seq_bwd.launches``; CPU tensors run the plain version."""
+    CUDA tensors (contiguous) launch the kernel of ``gru_seq_bwd_route``
+    once and add one to ``gru_seq_bwd.launches`` and to
+    ``gru_seq_bwd.route_launches[route]``; CPU tensors run the plain
+    version."""
     if gates.device.type == "cpu":
         return gru_seq_bwd_reference(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16)
     _check_bwd_args(gates, ghn, hprev, w_hh, dout, dhT)
     _build.check_cuda("gru_seq_bwd", (gates, ghn, hprev, w_hh, dout, dhT))
     T, B, G = gates.shape
-    H = G // 3
-    units = _bwd_units(H, gates.device)
-    if not units:
-        raise ValueError(f"gru_seq_bwd: hidden size {H} needs more blocks than the card has SMs")
-    dxp = torch.empty_like(gates)
-    dghn = torch.empty_like(ghn)
-    dh0 = torch.empty(B, H, dtype=torch.float32, device=gates.device)
-    _build.launch(_bwd_lib(), "gru_seq_bwd", "gru_seq_bwd",
-                  (gates, ghn, hprev, w_hh, dout, dhT, dxp, dghn, dh0),
-                  (T, B, H, units, int(compute_bf16)))
-    gru_seq_bwd.launches += 1
-    return dxp, dghn, dh0
+    route = gru_seq_bwd_route(G // 3, B, compute_bf16, gates.device)
+    return launch_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16, route)
 
 
 gru_seq_bwd.launches = 0
+gru_seq_bwd.route_launches = {"mma": 0, "direct": 0}
 
 
-def _bwd_units(hidden: int, device: torch.device) -> int:
-    """Hidden units per block of the backward kernel on ``device`` (0: none
-    of its instantiations keeps one block per SM)."""
+def gru_bwd_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool) -> int:
+    """Dynamic shared memory of one mma-route block of the backward
+    (``smem_bytes`` in csrc/gru_seq_bwd.cu): the block's W_hh columns, 3H x
+    U values (in bf16 U padded to whole n8 tiles), and ``tiles`` m16 tiles of
+    operand rows, 3H values each, in the operand type with 16 bytes of
+    padding per row; and the partial sums (bf16: one per warp's k share, 8;
+    float32: one per slice warp of the direct order, 4)."""
+    k = 3 * hidden
+    if compute_bf16:
+        n = -(-units // 8) * 8
+        weights, stride, es, shares = n * (k + 8), k + 8, 2, 8
+    else:
+        n = units
+        weights, stride, es, shares = k * units, k + 4, 4, 4
+    return (weights + 16 * tiles * stride) * es + 4 * shares * 16 * tiles * (n + 4)
+
+
+def _measured_bwd_units(batch: int, compute_bf16: bool) -> int:
+    """The U that tools/gru_bwd_variants.py --route layouts measured fastest
+    at H = 512, T = 159 on an NVIDIA H100 80GB HBM3 at 700 W: in float32 U =
+    4 at B = 1 (0.3113 ms; U = 16 0.4041), 8 up to B = 4 (0.3572; U = 16
+    0.3948), then 16 (B = 16 0.5676, U = 8 0.7661; B = 96 2.6188, U = 8
+    4.1097); in bf16 U = 8 up to B = 2 (0.3924; U = 32 0.4905), 16 up to
+    B = 12 (0.5250; U = 32 0.5438), then 32 (B = 14 0.5423, U = 16 0.5783;
+    B = 96 1.1613, U = 16 1.8565). More groups of fewer rows: a block polls
+    fewer rows and waits for fewer blocks, while its products stay R x U."""
+    if compute_bf16:
+        return 8 if batch <= 2 else (16 if batch <= 12 else 32)
+    return 4 if batch == 1 else (8 if batch <= 4 else 16)
+
+
+def gru_bwd_mma_plan(hidden: int, batch: int, compute_bf16: bool, props,
+                     units: Optional[int] = None):
+    """The backward's mma-route layout (``_plan`` at ``_measured_bwd_units``
+    with ``gru_bwd_smem_bytes``; one lane per cell, as the forward's)."""
+    return _plan(hidden, batch, compute_bf16, props, units, _measured_bwd_units,
+                 gru_bwd_smem_bytes)
+
+
+def gru_seq_bwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """The backward kernel that serves hidden size ``hidden``, batch
+    ``batch`` and the mode ``compute_bf16`` on ``device`` (a card, or its
+    ``CardProps`` or ``_build.Card``): "mma" where ``gru_bwd_mma_plan``
+    serves and B <= 200, else "direct" (the grid-synchronised kernel on the
+    CUDA cores). On an NVIDIA H100 80GB HBM3 at 700 W the mma route was
+    faster in all 76 cells of tools/gru_bwd_variants.py --route sweep (H =
+    512, B in 1, 2, 4, 8, 12, 14, 16, 18, 20, 24, 32, 48, 64, 80, 96, 112,
+    128, 160, 200, T = 80 and 159, both modes, the two routes in turns):
+    float32 B = 16 0.5674 against 0.6459 ms at T = 159 and 0.2840 against
+    0.3180 at T = 80, B = 96 2.6213 against 2.8416 at T = 159; bf16 B = 16
+    0.5363 against 0.7247 and B = 96 1.1568 against 3.4151 at T = 159; the
+    closest float32 B = 80, T = 80 (1.1531 against 1.2171). Larger batches
+    were not measured.
+    Chosen before the launch, from the shapes, the mode and the card
+    alone."""
+    return _route(gru_bwd_mma_plan, hidden, batch, compute_bf16, device)
+
+
+def launch_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16, route, lib=None, plan=None):
+    """One launch of the backward's ``route`` on CUDA tensors checked by the
+    caller (or, to time one route beside the other, by chip_smoke.py and the
+    variant tool, which may pass its own build as ``lib`` and an mma
+    ``plan``). Returns (dxp, dghn, dh0)."""
+    T, B, G = gates.shape
+    H = G // 3
+    dev = gates.device
+    dxp = torch.empty_like(gates)
+    dghn = torch.empty_like(ghn)
+    dh0 = torch.empty(B, H, dtype=torch.float32, device=dev)
+    tensors = (gates, ghn, hprev, w_hh, dout, dhT, dxp, dghn, dh0)
+    if route == "mma":
+        plan = plan or gru_bwd_mma_plan(H, B, compute_bf16, _build.card(dev))
+        if plan is None:
+            raise ValueError(f"gru_seq_bwd: the mma route does not serve H={H}, B={B}")
+        # This launch's exchange: dh tagged with its iteration, by iteration
+        # parity; zeros tag nothing.
+        xch = torch.zeros(2 * B * H, dtype=torch.int64, device=dev)
+        _build.launch(lib or _bwd_lib(), "gru_seq_bwd_mma", "gru_seq_bwd", tensors + (xch,),
+                      (T, B, H, plan.units, plan.groups, plan.tiles, int(compute_bf16)))
+    else:
+        units = _bwd_units(H, dev, lib)
+        if not units:
+            raise ValueError(f"gru_seq_bwd: hidden size {H} needs more blocks than the card "
+                             "has SMs")
+        _build.launch(lib or _bwd_lib(), "gru_seq_bwd", "gru_seq_bwd", tensors,
+                      (T, B, H, units, int(compute_bf16)))
+    gru_seq_bwd.launches += 1
+    gru_seq_bwd.route_launches[route] += 1
+    return dxp, dghn, dh0
+
+
+def _bwd_units(hidden: int, device: torch.device, lib=None) -> int:
+    """Hidden units per block of the backward's direct route on ``device``
+    (0: none of its instantiations keeps one block per SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _bwd_lib().gru_seq_bwd_units_per_block(hidden, sms)
+    return (lib or _bwd_lib()).gru_seq_bwd_units_per_block(hidden, sms)
 
 
 def gru_seq_shapes_ok(hidden: int, device: Optional[torch.device] = None) -> bool:
     """Whether the GRU sequence kernels serve hidden size ``hidden`` on
-    ``device``: on a card, each kernel's blocks fit one per SM with their
-    resident weights in opt-in shared memory (on an H100, H <= ~1050). On the
+    ``device``: on a card, each direct route's blocks fit one per SM with
+    their resident weights in opt-in shared memory (on an H100, H <= ~1050);
+    the direct routes serve every batch, the mma routes the shapes their
+    route functions send them. On the
     CPU the plain versions serve any width. (The TPU gate
     ``pallas_shapes_ok`` -- B % 8, B <= 96, H % 128 -- is a fact of the TPU's
     VMEM and tiles.)"""
@@ -343,7 +455,8 @@ class _GRUSeq(torch.autograd.Function):
     (``_gru_seq_fwd`` / ``_gru_seq_bwd``): the forward kernel saves the h,
     gate and gh_n sequences; the backward kernel gives dx_proj, dghn and dh0,
     and dW_hh and db_hh are float32 reductions of the recurrent-side gate
-    gradients [dr_pre | dz_pre | dghn] against the previous-step h sequence."""
+    gradients [dr_pre | dz_pre | dghn] against the previous-step h sequence.
+    Each kernel runs on the route its wrapper picks for the batch and mode."""
 
     @staticmethod
     def forward(ctx, x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):

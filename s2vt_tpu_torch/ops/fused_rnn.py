@@ -387,13 +387,16 @@ def mma_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool,
 
 
 def mma_plan(hidden: int, batch: int, compute_bf16: bool, props: CardProps,
-             units: Optional[int] = None, gates: int = 4) -> Optional[MmaPlan]:
+             units: Optional[int] = None, gates: int = 4,
+             smem_bytes=None) -> Optional[MmaPlan]:
     """The mma route's layout for hidden size ``hidden`` and batch ``batch``
     on a card of ``props`` (anything with ``sms`` and ``smem_optin``), for
     the forward with ``gates`` gate rows per unit (4: LSTM, kernel #3; 3:
-    GRU, kernel #5), or None where it does not serve: 128 <= H <= 512,
-    H % 128 == 0. For each U (``units``, or each instantiated one; 32 only in
-    bf16) the batch splits into as many groups as the card's SMs hold
+    GRU, kernel #5; 3 with ``smem_bytes(hidden, units, tiles,
+    compute_bf16)``: the GRU backward, kernel #6), or None where it does not
+    serve: 128 <= H <= 512, H % 128 == 0. For each U (``units``, or each
+    instantiated one; 32 only in bf16) the batch splits into as many groups
+    as the card's SMs hold
     (G H / U <= SMs), a block stages as many of its group's m16 tiles per
     pass as its shared memory and its thread slots allow (16 (cell, gate)
     pairs per thread for the LSTM's four lanes per cell, 4 cells for the
@@ -405,6 +408,7 @@ def mma_plan(hidden: int, batch: int, compute_bf16: bool, props: CardProps,
     if not (128 <= hidden <= _MMA_MAX_HIDDEN and hidden % 128 == 0 and batch >= 1):
         return None
     lanes = _MMA_CELL_LANES[gates]
+    smem = smem_bytes or functools.partial(mma_smem_bytes, gates=gates)
     plans = []
     for u in (units,) if units else _MMA_UNITS:
         groups = min(props.sms // (hidden // u), batch)
@@ -417,8 +421,7 @@ def mma_plan(hidden: int, batch: int, compute_bf16: bool, props: CardProps,
             passes = -(-m_tiles // tiles)
             slots = passes * -(-16 * tiles * u * lanes // _MMA_THREADS)
             if (slots <= _MMA_SLOTS[gates]
-                    and mma_smem_bytes(hidden, u, tiles, compute_bf16, gates)
-                    <= props.smem_optin):
+                    and smem(hidden, u, tiles, compute_bf16) <= props.smem_optin):
                 plans.append(MmaPlan(u, groups, rows, tiles, passes))
                 break
     return min(plans, key=lambda p: (-(-p.rows // 16) * p.units, p.passes, p.rows),

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
+import re
 import subprocess
 from typing import Dict, Tuple
 
@@ -58,3 +59,19 @@ def build(sources: Dict[str, str], out_dir: pathlib.Path) -> Dict[str, Tuple[cty
         lib.s2vt_cuda_error_string.restype = ctypes.c_char_p
         libs[name] = (lib, out)
     return libs
+
+
+def sass_sizes(library: pathlib.Path) -> str:
+    """Machine instructions of each mma-route kernel of ``library``, by
+    cuobjdump (beside nvcc)."""
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    sizes, fn = {}, None
+    for line in sass.splitlines():
+        if (m := re.search(r"Function : (\S+)", line)):
+            fn = _build.kernel_symbol_name(m.group(1))
+            sizes[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            sizes[fn] += 1
+    return ", ".join(f"{k} {v}" for k, v in sizes.items() if "_mma" in k)

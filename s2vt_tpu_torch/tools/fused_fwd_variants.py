@@ -50,8 +50,6 @@ checkout.
 from __future__ import annotations
 
 import argparse
-import pathlib
-import re
 import subprocess
 
 import torch
@@ -169,18 +167,8 @@ def ptxas_report(report: str) -> str:
 
 def sass_sizes(name: str) -> str:
     """Machine instructions of each mma-route kernel of variant ``name``'s
-    library, by cuobjdump (beside nvcc)."""
-    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(OUT_DIR / f"{name}.so")],
-                          capture_output=True, text=True, check=True).stdout
-    sizes, fn = {}, None
-    for line in sass.splitlines():
-        if (m := re.search(r"Function : (\S+)", line)):
-            fn = _build.kernel_symbol_name(m.group(1))
-            sizes[fn] = 0
-        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            sizes[fn] += 1
-    return ", ".join(f"{k} {v}" for k, v in sizes.items() if "_mma" in k)
+    library."""
+    return _variants.sass_sizes(OUT_DIR / f"{name}.so")
 
 
 def inputs(B: int, bf16: bool, device, gen):
