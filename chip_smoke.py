@@ -13,15 +13,16 @@ Phases; a failure in any of them exits non-zero before the result line:
               fused kernels at T = 2L - 1 = 159, the per-layer LSTM and GRU
               sequence kernels at T = L = 80 (beam encode) and T = 159
               (training); kernel, plain and library (cuDNN nn.LSTM / nn.GRU)
-              times beside the bound. The fused forward, the LSTM forward
-              and backward and the GRU forward and backward have two routes
-              each (fused_s2vt_fwd_route, lstm_seq_fwd_route,
-              gru_seq_fwd_route and gru_seq_bwd_route: "mma" or "direct";
-              lstm_seq_bwd_route: "cluster" in bf16, "direct"): each check
-              call's route is
+              times beside the bound. The fused forward and backward, the
+              LSTM forward and backward and the GRU forward and backward
+              have two routes each (fused_s2vt_fwd_route,
+              fused_s2vt_bwd_route, lstm_seq_fwd_route, gru_seq_fwd_route
+              and gru_seq_bwd_route: "mma" or "direct"; lstm_seq_bwd_route:
+              "cluster" in bf16, "direct"): each check call's route is
               printed and its launch held to it, the other route is checked
               on the same inputs (its launch held to it too) and timed beside
-              the routed kernel, in turns.
+              the routed kernel, in turns (the fused backward's mma route
+              takes bf16 alone, so its float32 shapes have one route).
   3. slice    greedy_eval -> model_from_checkpoint on a corpus and a
               checkpoint made from --seed at H = E = 512, F = 4096, L = 80
               (the serving path; the kernel launch counts are read around it),
@@ -32,8 +33,9 @@ Phases; a failure in any of them exits non-zero before the result line:
               main path; launch counts read around it), greedy_eval and
               beam_eval of its final checkpoint against the plain route, the
               kernel route's gradients against the plain route's, train-step
-              times at B in {16, 96}, float32 and bf16, and greedy and beam
-              times.
+              times at B in {16, 96}, float32 and bf16 (every fused forward
+              and backward launch of the timed steps held to its route), and
+              greedy and beam times.
   5. beam     beam_eval -> model_from_checkpoint on the corpus and checkpoint
               of phase 3 at B = 16, width 3, depth 30 (the beam slice's main
               path; launch counts read around it, each LSTM forward launch
@@ -178,7 +180,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
 ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd", "fused_s2vt_fwd",
-          "gru_seq_fwd", "gru_seq_bwd")
+          "fused_s2vt_bwd", "gru_seq_fwd", "gru_seq_bwd")
 
 
 def card_line() -> str:
@@ -524,10 +526,27 @@ def phase_kernels(torch, device, hid, length, batches, timed, reps, card):
             g1, c1, g2, c2 = got[:4]
             dout2 = torch.randn(T, B, hid, device=device, generator=gen)
             bargs = (g1, c1, g2, c2, dout2, *args[2:])
+            before = read_routes("fused_s2vt_bwd") if device.type == "cuda" else None
             dxp = fs.fused_s2vt_bwd(*bargs)
             sync()
-            _check(torch, "fused_s2vt_bwd", B, name, hid, T, dxp, fs.fused_s2vt_bwd_reference(*bargs),
-                   errors)
+            bwant = fs.fused_s2vt_bwd_reference(*bargs)
+            _check(torch, "fused_s2vt_bwd", B, name, hid, T, dxp, bwant, errors)
+            broute = bother = None
+            if device.type == "cuda":
+                # The backward's route held, then its other route on the same
+                # inputs where there is one (the mma route takes bf16 alone).
+                broute = fs.fused_s2vt_bwd_route(hid, B, bf16, device)
+                bother = "direct" if broute == "mma" else None
+                print(f"kernel fused_s2vt_bwd B={B} {name} T={T}: route {broute}", flush=True)
+                held_to_route("fused_s2vt_bwd", before, broute, f"B={B} {name} T={T}")
+                if bother is not None:
+                    before = read_routes("fused_s2vt_bwd")
+                    dxpo = fs.launch_bwd(*bargs, bother)
+                    sync()
+                    held_to_route("fused_s2vt_bwd", before, bother,
+                                  f"B={B} {name} T={T} ({bother})")
+                    _check(torch, f"fused_s2vt_bwd[{bother}]", B, name, hid, T, dxpo, bwant,
+                           errors)
             if B not in timed:
                 continue
             route_note = ""
@@ -569,7 +588,23 @@ def phase_kernels(torch, device, hid, length, batches, timed, reps, card):
                 d1, d2 = (d.float() for d in fs.fused_s2vt_bwd(*bargs))
                 fs._outer_sum(d1, h1p), fs._outer_sum(d2, h1), fs._outer_sum(d2, h2p)
 
-            k_ms = cuda_ms(torch, lambda: fs.fused_s2vt_bwd(*bargs), reps)
+            broute_note = ""
+            if bother is None:
+                k_ms = cuda_ms(torch, lambda: fs.fused_s2vt_bwd(*bargs), reps)
+                if broute is not None:
+                    broute_note = f"({k_ms / (T + 1) * 1e3:.2f} us per iteration) route={broute} "
+            else:
+                # The routed backward and its other route in turns: routed,
+                # other, other, routed.
+                def bother_fn():
+                    fs.launch_bwd(*bargs, bother)
+                turns = [cuda_ms(torch, f, reps) for f in
+                         (lambda: fs.fused_s2vt_bwd(*bargs), bother_fn, bother_fn,
+                          lambda: fs.fused_s2vt_bwd(*bargs))]
+                k_ms, bo_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                broute_note = (f"({k_ms / (T + 1) * 1e3:.2f} us per iteration) route={broute} "
+                               f"{bother}_route_ms={bo_ms:.4f} "
+                               f"({bo_ms / (T + 1) * 1e3:.2f} us per iteration) ")
             kdw_ms = cuda_ms(torch, bwd_and_dw, reps)
             p_ms = cuda_ms(torch, lambda: fs.fused_s2vt_bwd_reference(*bargs),
                            max(1, reps // 5), warmup=1)
@@ -578,8 +613,12 @@ def phase_kernels(torch, device, hid, length, batches, timed, reps, card):
             times[("fused_s2vt_bwd", B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                                                       bound_ms=bound, bound_by=bound_by,
                                                       with_dw_ms=kdw_ms)
-            print(f"time fused_s2vt_bwd B={B} {name}: kernel_ms={k_ms:.4f} "
-                  f"kernel_plus_3dW_ms={kdw_ms:.4f} plain_ms={p_ms:.4f} "
+            if broute is not None:
+                times[("fused_s2vt_bwd", B, name, T)]["route"] = broute
+            if bother is not None:
+                times[("fused_s2vt_bwd", B, name, T)].update(other_route=bother, other_ms=bo_ms)
+            print(f"time fused_s2vt_bwd B={B} {name}: kernel_ms={k_ms:.4f} " + broute_note
+                  + f"kernel_plus_3dW_ms={kdw_ms:.4f} plain_ms={p_ms:.4f} "
                   f"library_bwd_ms={lib_ms:.4f} (cuDNN fwd+bwd less fwd) bound_ms={bound:.4f} "
                   f"({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
                   f"bound_share={bound / k_ms:.4f} [{card}]", flush=True)
@@ -627,7 +666,8 @@ SEQ_ROUTES = {"lstm_seq_fwd": ("lstm_seq_fwd_route", "launch_fwd", ("mma", "dire
 # Every routed recurrent kernel whose main-path launches a phase holds to
 # its route: (its route function, its routes).
 ROUTE_RULES = {**{k: (v[0], v[2]) for k, v in SEQ_ROUTES.items()},
-               "fused_s2vt_fwd": ("fused_s2vt_fwd_route", ("mma", "direct"))}
+               "fused_s2vt_fwd": ("fused_s2vt_fwd_route", ("mma", "direct")),
+               "fused_s2vt_bwd": ("fused_s2vt_bwd_route", ("mma", "direct"))}
 
 
 def seq_route(name: str, hid: int, B: int, bf16: bool, device) -> str:
@@ -1353,7 +1393,7 @@ def s2vt_launches(rnn_type, num_layers, length=LENGTH):
 def hold_seq_routes(routes: dict, per_batch: dict, device, label: str, card: str,
                     hid: int = H, bf16: bool = False) -> None:
     """Phases 3-10: each launch of the routed recurrent kernels (the LSTM
-    and GRU sequence kernels, the fused forward) on the route its
+    and GRU sequence kernels, the fused forward and backward) on the route its
     wrapper takes for that batch and mode. ``routes`` holds each kernel's
     route counts of the run, ``per_batch`` {kernel: {B: launches at that
     B}}."""
@@ -1447,6 +1487,7 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
             for B in batches:
                 args = _random_batch(torch, B, length, feat, trainer.train_ds.vocab_size,
                                      device, gen)
+                reset_launches()
                 for _ in range(2):
                     tr.train_step(*args)
                 med = median_s(lambda: tr.train_step(*args).item(), reps, sync)
@@ -1456,6 +1497,16 @@ def phase_train(torch, device, seed, hid, feat, length, vocab, n_videos, epochs,
                 if device.type == "cuda":
                     profile_call(torch, lambda: tr.train_step(*args), med * 1e3,
                                  f"{rnn_type} train step B={B} {dtype}", card)
+                # Every routed launch of the timed steps on its route, with
+                # exact counts.
+                timed = read_launches()
+                if device.type == "cuda" and any(timed[k] <= 0 for k in per_train):
+                    raise SystemExit(f"the timed {rnn_type} train steps at B={B} {dtype} "
+                                     f"launched {timed}")
+                hold_seq_routes({k: read_routes(k) for k in ROUTE_RULES},
+                                {k: {B: timed[k]} for k in ROUTE_RULES}, device,
+                                f"{rnn_type} {num_layers}-layer timed train steps B={B} {dtype}",
+                                card, hid, dtype == "bfloat16")
         feats = _random_batch(torch, MAIN_BATCH, length, feat, trainer.train_ds.vocab_size,
                               device, gen)[0]
         time_requests(torch, device, trainer.model, feats, reps, sync,
@@ -1957,8 +2008,8 @@ def main() -> int:
             rows[-1]["route_launches"] = beam_routes
         if name == "lstm_seq_bwd":
             rows[-1]["route_launches"] = routes2["lstm_seq_bwd"]
-        if name == "fused_s2vt_fwd":
-            rows[-1]["route_launches"] = routes1["fused_s2vt_fwd"]
+        if name in ("fused_s2vt_fwd", "fused_s2vt_bwd"):
+            rows[-1]["route_launches"] = routes1[name]
         if name in ("gru_seq_fwd", "gru_seq_bwd"):
             rows[-1]["route_launches"] = gru_routes[name]
     print(json.dumps({"kernels": rows}), flush=True)

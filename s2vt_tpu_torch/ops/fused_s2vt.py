@@ -18,9 +18,10 @@ gives dh1 and ``dg2 @ W2hh`` gives dh2, one step apart.
 (``csrc/fused_s2vt_fwd.cu``, ``csrc/fused_s2vt_bwd.cu``) for CUDA tensors and
 run ``fused_s2vt_fwd_reference`` / ``fused_s2vt_bwd_reference``, the same
 recurrences in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a
-kernel or an exception. The forward has two kernels, its "mma" and "direct"
-routes, picked by ``fused_s2vt_fwd_route`` from the shapes, the mode and the
-card before the launch. ``s2vt_fused_out2`` is differentiable through both.
+kernel or an exception. Each has two kernels, its "mma" and "direct"
+routes, picked by ``fused_s2vt_fwd_route`` and ``fused_s2vt_bwd_route`` from
+the shapes, the mode and the card before the launch. ``s2vt_fused_out2`` is
+differentiable through both.
 """
 
 from __future__ import annotations
@@ -404,7 +405,11 @@ fused_s2vt_fwd.route_launches = {"mma": 0, "direct": 0}
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel_lib() -> ctypes.CDLL:
     """The backward kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_BWD_LIB_NAME)
+    return set_bwd_signatures(_build.load(_BWD_LIB_NAME))
+
+
+def set_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the backward library's entry points."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.s2vt_fused_bwd.argtypes = [vp] * 11 + [ci] * 5 + [vp]
     lib.s2vt_fused_bwd.restype = ci
@@ -412,44 +417,231 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     lib.s2vt_fused_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.s2vt_fused_bwd_units_per_block.argtypes = []
     lib.s2vt_fused_bwd_units_per_block.restype = ci
+    lib.s2vt_fused_bwd_mma.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+    lib.s2vt_fused_bwd_mma.restype = ci
+    lib.s2vt_fused_bwd_mma_smem_bytes.argtypes = [ci] * 5
+    lib.s2vt_fused_bwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.s2vt_fused_bwd_mma_xch_words.argtypes = [ci]
+    lib.s2vt_fused_bwd_mma_xch_words.restype = ctypes.c_size_t
+    lib.s2vt_fused_bwd_mma_active_clusters.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.s2vt_fused_bwd_mma_active_clusters.restype = ci
     return lib
+
+
+# The backward's "mma" route (csrc/fused_s2vt_bwd.cu, namespace mma_route),
+# bf16 only: its blocks, clusters and what each holds.
+_BWD_UNITS = (8,)                  # instantiated hidden units per block (U)
+_BWD_CLUSTERS = (2, 4)             # blocks per thread-block cluster (C)
+_BWD_SLOTS = 4                     # cells a thread runs per pass
+_BWD_MAX_ROWS = 48                 # batch rows per pass
+_BWD_MAX_HIDDEN = 512              # the widest layout the route is checked at
+_BWD_MIN_SMEM = 120 * 1024         # one block per SM
+_BWD_MAX_BATCH = 200               # the largest batch the sweep measured
+
+
+class BwdCard(NamedTuple):
+    """What the backward's mma route depends on, of one card: its SMs, the
+    opt-in shared memory of a block, and how many clusters of 2 and 4 of
+    the route's blocks (one per SM) it holds at once."""
+    sms: int
+    smem_optin: int
+    clusters: Tuple[int, int]
+
+
+class BwdPlan(NamedTuple):
+    """How the backward's mma route lays out one launch: ``groups`` batch
+    groups of ``rows`` rows (the last may hold fewer), each run by H /
+    ``units`` blocks in clusters of ``cluster`` blocks that split the k
+    range of the products; a block runs ``pass_rows`` of its group's rows
+    per pass, ``passes`` passes per iteration."""
+    units: int
+    cluster: int
+    groups: int
+    rows: int
+    pass_rows: int
+    passes: int
+
+
+def _bwd_cells_per_pass(units: int, pass_rows: int) -> int:
+    return -(-2 * pass_rows * units // 256)
+
+
+def fused_bwd_smem_bytes(hidden: int, units: int, cluster: int, pass_rows: int,
+                         passes: int = 1) -> int:
+    """Dynamic shared memory of one mma-route block (``smem_bytes`` in the
+    source), at least 120 KiB (one block per SM): the resident bf16 weights
+    of the cluster's C U units over the block's k share (12 H U values, rows
+    padded by 8), the staged operand rows of a pass (its share of [dg1' |
+    dg2'], 8H / C bf16 values per row, padded by 8; at least the warps' k
+    shares of the sums laid over them), the pushed partials [2][C][rows][2]
+    [U] in float32, the dc carries, one word per cell slot of the 256
+    threads for each pass, and the 7 input words of each cell slot of a
+    pass."""
+    kh, cu = 4 * hidden // cluster, cluster * units
+    weights = (cu * (2 * kh + 8) + cu * (kh + 8)) * 2
+    warps_n = cu // 16 if cu >= 32 else 1
+    staged = max(pass_rows * (2 * kh + 8) * 2, 4 * (8 // warps_n) * pass_rows * (2 * cu + 4))
+    rcv = 4 * 2 * cluster * pass_rows * units * 2
+    cells = _bwd_cells_per_pass(units, pass_rows) * 256
+    return max(weights + staged + rcv + 4 * passes * cells + 4 * 7 * cells, _BWD_MIN_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_bwd_plan(hidden: int, batch: int, compute_bf16: bool, props,
+                   units: Optional[int] = None,
+                   cluster: Optional[int] = None) -> Optional[BwdPlan]:
+    """The backward's mma layout for hidden size ``hidden`` and batch
+    ``batch`` on a card of ``props`` (a ``BwdCard``), or None where it does
+    not serve: float32, or H outside 128-512, or H % 128 != 0. For U
+    (``units``, or 8, the one layout the source instantiates) and each C
+    (``cluster``, or 2 and 4) the batch splits into as many groups as the
+    card's SMs and co-resident clusters hold; a block runs its group in one
+    pass where its shared memory and its 4 cells per thread allow it (at
+    most 48 rows), else passes of 16 rows. Of these the plan with the
+    fewest passes, then the most units per cluster (C U: the fewest bytes
+    read per iteration), then the fewest rows per group is chosen. On an
+    H100 (30 co-resident clusters of 4) that is U = 8 in clusters of 4, one
+    group, up to B = 32, then clusters of 2 in two groups, 16 rows per pass
+    (B = 24: 1.1012 ms against 1.2317 for clusters of 2; B = 96: 3.0178
+    against 4.4170 for clusters of 4 in one group, 6 passes;
+    tools/fused_bwd_variants.py --route layouts, H = 512, T = 159, on an
+    NVIDIA H100 80GB HBM3 at 700 W). Computed once per shape and card."""
+    if not (compute_bf16 and 128 <= hidden <= _BWD_MAX_HIDDEN and hidden % 128 == 0
+            and batch >= 1):
+        return None
+    plans = []
+    for u in (units,) if units else _BWD_UNITS:
+        for c in (cluster,) if cluster else _BWD_CLUSTERS:
+            blocks = hidden // u
+            if c not in _BWD_CLUSTERS or blocks % c or blocks > props.sms:
+                continue
+            groups = min(props.sms // blocks, props.clusters[_BWD_CLUSTERS.index(c)] * c // blocks,
+                         batch)
+            if groups < 1:
+                continue
+            rows = -(-batch // groups)
+            groups = -(-batch // rows)
+            # the group in one pass where it fits, else passes of one m16
+            # tile (the layouts run measured them faster per row than passes
+            # of 32 or 48 rows)
+            for rp in (-(-rows // 16) * 16, 16):
+                passes = -(-rows // rp)
+                if (rp <= _BWD_MAX_ROWS and _bwd_cells_per_pass(u, rp) <= _BWD_SLOTS
+                        and fused_bwd_smem_bytes(hidden, u, c, rp, passes) <= props.smem_optin):
+                    plans.append(BwdPlan(u, c, groups, rows, rp, passes))
+                    break
+    return min(plans, key=lambda p: (p.passes, -p.units * p.cluster, p.rows), default=None)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_card(index: int) -> BwdCard:
+    lib = _bwd_kernel_lib()
+    clusters = []
+    for c in _BWD_CLUSTERS:
+        n = ctypes.c_int(0)
+        err = lib.s2vt_fused_bwd_mma_active_clusters(c, index, ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"fused_s2vt_bwd: cudaOccupancyMaxActiveClusters failed: "
+                               f"{lib.s2vt_cuda_error_string(err).decode()} (cudaError {err})")
+        clusters.append(n.value)
+    return BwdCard(*_build.card(torch.device("cuda", index)), tuple(clusters))
+
+
+def bwd_card(device) -> BwdCard:
+    """``BwdCard`` of card ``device``, read once per card."""
+    device = torch.device(device)
+    return _bwd_card(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def fused_s2vt_bwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> str:
+    """The backward kernel that serves hidden size ``hidden``, batch
+    ``batch`` and the mode ``compute_bf16`` on ``device`` (a card, or its
+    ``BwdCard``): "mma" in bf16 where ``fused_bwd_plan`` serves and B <=
+    200; else "direct" (the grid-synchronised kernel on the CUDA cores),
+    every float32 shape included. On an NVIDIA H100 80GB HBM3 at 700 W
+    (tools/fused_bwd_variants.py --route sweep, H = 512, T = 159, B in 1, 2,
+    4, 8, 12, 16, 24, 32, 48, 64, 80, 96, 112, 128, 160, 200, the two routes
+    in turns) the mma route was faster at every bf16 batch (0.6884 against
+    0.8757 ms at B = 1, 0.7950 against 0.9680 at B = 16, the closest,
+    3.0908 against 4.5264 at B = 96, 6.7525 against 9.4612 at B = 200).
+    A float32 form of the route was slower than the direct route from B = 8
+    on (1.1276 against 0.9555 ms at B = 8, 2.0248 against 1.1029 at B = 16)
+    and left the source. Larger batches were not measured. Chosen before
+    the launch, from the shapes, the mode and the card alone."""
+    if not compute_bf16 or batch > _BWD_MAX_BATCH:
+        return "direct"
+    props = device if isinstance(device, BwdCard) else bwd_card(device)
+    return "mma" if fused_bwd_plan(hidden, batch, compute_bf16, props) else "direct"
+
+
+def launch_bwd(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh, route: str, lib=None, plan=None):
+    """One launch of ``route``'s backward kernel on CUDA tensors checked by
+    the caller (or, to time one route beside the other, by chip_smoke.py
+    and tools/fused_bwd_variants.py, which passes its own builds as ``lib``
+    and its layouts as the mma ``plan``). The mma route takes bf16 alone.
+    Returns (dxp1, dxp2)."""
+    T, B, G = g1.shape
+    H = G // 4
+    dev, mmd = g1.device, g1.dtype
+    bf16 = mmd == torch.bfloat16
+    dxp1 = torch.empty(T, B, G, dtype=mmd, device=dev)
+    dxp2 = torch.empty(T, B, G, dtype=mmd, device=dev)
+    tensors = (g1, c1, g2, c2, dout2, w1hh, w2v, w2hh, dxp1, dxp2)
+    if route == "mma":
+        plan = plan or fused_bwd_plan(H, B, bf16, bwd_card(dev))
+        if plan is None or not bf16:
+            raise ValueError(f"fused_s2vt_bwd: the mma route does not serve H={H}, B={B}, {mmd}")
+        # This launch's exchange: [dg1 | dg2] tagged with the iteration that
+        # wrote it, by its parity, two units per word; zeros tag nothing.
+        lib = lib or _bwd_kernel_lib()
+        xch = torch.zeros(2 * B * lib.s2vt_fused_bwd_mma_xch_words(H), dtype=torch.int64,
+                          device=dev)
+        _build.launch(lib, "s2vt_fused_bwd_mma", "fused_s2vt_bwd",
+                      tensors + (xch,), (T, B, H, plan.units, plan.cluster, plan.groups,
+                                         plan.pass_rows))
+    else:
+        if H % 2:
+            raise ValueError(f"the kernel reads gate rows in 16-byte chunks and needs an even "
+                             f"H, got {H}")
+        dc = torch.zeros(2, B, H, dtype=torch.float32, device=dev)
+        _build.launch(lib or _bwd_kernel_lib(), "s2vt_fused_bwd", "fused_s2vt_bwd",
+                      tensors + (dc,), (T, B, H, int(bf16)))
+    fused_s2vt_bwd.launches += 1
+    fused_s2vt_bwd.route_launches[route] += 1
+    return dxp1, dxp2
 
 
 def fused_s2vt_bwd(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh):
     """The fused backward (``fused_s2vt_bwd_reference``'s contract).
 
-    CUDA tensors (contiguous) launch the kernel once and add one to
-    ``fused_s2vt_bwd.launches``; CPU tensors run the plain version."""
+    CUDA tensors (contiguous) launch the kernel of ``fused_s2vt_bwd_route``
+    once and add one to ``fused_s2vt_bwd.launches`` and to
+    ``fused_s2vt_bwd.route_launches[route]``; CPU tensors run the plain
+    version."""
     if g1.device.type == "cpu":
         return fused_s2vt_bwd_reference(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh)
     _check_bwd_args(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh)
     tensors = (g1, c1, g2, c2, dout2, w1hh, w2v, w2hh)
     _build.check_cuda("fused_s2vt_bwd", tensors)
     T, B, G = g1.shape
-    H = G // 4
-    if H % 2:
-        raise ValueError(f"the kernel reads gate rows in 16-byte chunks and needs an even H, "
-                         f"got {H}")
-    dev, mmd = g1.device, g1.dtype
-    lib = _bwd_kernel_lib()
-    dxp1 = torch.empty(T, B, G, dtype=mmd, device=dev)
-    dxp2 = torch.empty(T, B, G, dtype=mmd, device=dev)
-    dc = torch.zeros(2, B, H, dtype=torch.float32, device=dev)
-    _build.launch(lib, "s2vt_fused_bwd", "fused_s2vt_bwd", (*tensors, dxp1, dxp2, dc),
-                  (T, B, H, int(mmd == torch.bfloat16)))
-    fused_s2vt_bwd.launches += 1
-    return dxp1, dxp2
+    route = fused_s2vt_bwd_route(G // 4, B, g1.dtype == torch.bfloat16, g1.device)
+    return launch_bwd(*tensors, route)
 
 
 fused_s2vt_bwd.launches = 0
+fused_s2vt_bwd.route_launches = {"mma": 0, "direct": 0}
 
 
 def fused_shapes_ok(dim_hid: int, num_layers: int, rnn_type: str,
                     device: Optional[torch.device] = None) -> bool:
     """Whether the fused kernels serve this model on ``device``: one LSTM
-    layer per chain and, on a card, H is even and each kernel's blocks fit
-    one per SM with their resident weights in opt-in shared memory. On the
-    CPU the plain versions serve any width."""
+    layer per chain and, on a card, H is even and both direct kernels fit
+    (their blocks one per SM with their resident weights in opt-in shared
+    memory). The route rules send every batch above 200 of both kernels,
+    and every float32 batch of the backward, to the direct kernels, and an
+    mma route only shapes its plan fits, so every batch of the model runs
+    on a kernel that fits exactly when the direct kernels do. On the CPU
+    the plain versions serve any width."""
     if num_layers != 1 or rnn_type != "lstm":
         return False
     device = torch.device(device if device is not None else "cpu")
@@ -457,13 +649,13 @@ def fused_shapes_ok(dim_hid: int, num_layers: int, rnn_type: str,
         return True
     if dim_hid % 2:
         return False
-    props = torch.cuda.get_device_properties(device)
-    sms, smem = props.multi_processor_count, props.shared_memory_per_block_optin
-    units = units_per_block(dim_hid, sms)
+    card = _build.card(device)
+    units = units_per_block(dim_hid, card.sms)
     bwd = _bwd_kernel_lib()
     bwd_blocks = -(-dim_hid // bwd.s2vt_fused_bwd_units_per_block())
-    return (_kernel_lib().s2vt_fused_fwd_smem_bytes(dim_hid, units) <= smem
-            and bwd.s2vt_fused_bwd_smem_bytes(dim_hid) <= smem and bwd_blocks <= sms)
+    return (_kernel_lib().s2vt_fused_fwd_smem_bytes(dim_hid, units) <= card.smem_optin
+            and bwd.s2vt_fused_bwd_smem_bytes(dim_hid) <= card.smem_optin
+            and bwd_blocks <= card.sms)
 
 
 def s2vt_fused_infer(x1t, x2t, w1hh, w2v, w2hh, snap_idx: int,

@@ -1,10 +1,12 @@
 """Host and device time of one S2VT train step on the card.
 
     PYTHONPATH=<checkout> python <checkout>/s2vt_tpu_torch/tools/train_step_time.py
-        [--rnn_type gru] [--num_layers 1] [--batch 16] [--reps 40] [--label NAME]
+        [--rnn_type gru] [--num_layers 1] [--batch 16] [--dtype float32] [--reps 40]
+        [--label NAME]
 
 Builds a ``Trainer`` at the MSVD width of chip_smoke.py's training phases
-(H = E = 512, F = 4096, L = 80, the vocab padded to 10240, use_pallas, float32)
+(H = E = 512, F = 4096, L = 80, the vocab padded to 10240, use_pallas, the
+compute dtype ``--dtype``, float32 by default)
 on a synthetic corpus and random weights made from ``--seed``, and times
 ``Trainer.train_step`` on one random batch: the median host ms of ``--reps``
 synchronised steps, then one step under ``torch.profiler``: the device busy
@@ -42,7 +44,7 @@ def card_line() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def trainer(root: str, seed: int, rnn_type: str, num_layers: int, batch: int):
+def trainer(root: str, seed: int, rnn_type: str, num_layers: int, batch: int, dtype: str):
     from s2vt_tpu_torch.config import Opt
     from s2vt_tpu_torch.data.dataset import make_synthetic_corpus
     from s2vt_tpu_torch.training import Trainer
@@ -51,7 +53,7 @@ def trainer(root: str, seed: int, rnn_type: str, num_layers: int, batch: int):
     opt = Opt(caption_file=meta["captions_file"], feats_path=meta["feat_path"],
               gts_file=meta["gts_file"], train_length=LENGTH, dim_hidden=H, dim_embed=H,
               feat_dim=FEAT, vocab_pad_multiple=VOCAB, batch_size=batch, use_pallas=True,
-              compute_dtype="float32", seed=seed, rnn_type=rnn_type, num_layers=num_layers,
+              compute_dtype=dtype, seed=seed, rnn_type=rnn_type, num_layers=num_layers,
               save_path=f"{root}/ckpt", log_dir=f"{root}/runs")
     return Trainer(opt, device="cuda")
 
@@ -70,6 +72,7 @@ def main() -> int:
     ap.add_argument("--rnn_type", default="gru", choices=("lstm", "gru"))
     ap.add_argument("--num_layers", type=int, default=1)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--reps", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default="")
@@ -78,7 +81,7 @@ def main() -> int:
         raise SystemExit("train_step_time needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
     with tempfile.TemporaryDirectory() as root:
-        tr = trainer(root, args.seed, args.rnn_type, args.num_layers, args.batch)
+        tr = trainer(root, args.seed, args.rnn_type, args.num_layers, args.batch, args.dtype)
         step_args = random_batch(args.batch, tr.train_ds.vocab_size, args.seed + 2)
         for _ in range(3):
             tr.train_step(*step_args).item()
@@ -97,7 +100,7 @@ def main() -> int:
     own = {k: (sum(e.self_device_time_total for e in kernels if sym in e.key) / 1e3,
                sum(e.count for e in kernels if sym in e.key)) for k, sym in KERNELS.items()}
     print(f"train step {args.label} rnn={args.rnn_type} layers={args.num_layers} "
-          f"B={args.batch} f32: host_ms median={med:.3f} min={min(secs) * 1e3:.3f} "
+          f"B={args.batch} {args.dtype}: host_ms median={med:.3f} min={min(secs) * 1e3:.3f} "
           f"max={max(secs) * 1e3:.3f} (of {args.reps}) clips_per_s={args.batch / med * 1e3:.1f} "
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / med:.4f} "
           f"device_kernels={sum(e.count for e in kernels)} "
