@@ -22,7 +22,10 @@ Phases; a failure in any of them exits non-zero before the result line:
               printed and its launch held to it, the other route is checked
               on the same inputs (its launch held to it too) and timed beside
               the routed kernel, in turns (the fused backward's mma route
-              takes bf16 alone, so its float32 shapes have one route).
+              takes bf16 alone, so its float32 shapes have one route). The
+              attention-decoder loop (#7) likewise (att_decode_fwd_route:
+              "mma", the context product folded into one tensor-core
+              product ahead of the loop, or "direct"), at T = L - 1 = 79.
   3. slice    greedy_eval -> model_from_checkpoint on a corpus and a
               checkpoint made from --seed at H = E = 512, F = 4096, L = 80
               (the serving path; the kernel launch counts are read around it),
@@ -49,7 +52,8 @@ Phases; a failure in any of them exits non-zero before the result line:
               corpus of phase 4 (launch counts read around it: the
               attention-decoder kernel runs the no-gradient validation pass,
               the sequence kernels the bi-LSTM encoder, every launch of them
-              on the route its wrapper takes), greedy_eval and
+              on the route its wrapper takes; the timed no-gradient passes'
+              #7 launches too, exact counts), greedy_eval and
               beam_eval of its final checkpoint against the plain route, the
               kernel routes against the plain routes on one batch, and
               teacher-forced, train-step, greedy and beam times.
@@ -93,7 +97,8 @@ Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel; and
 every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
 9 and 10, the LSTM sequence kernels in phases 4-9, the GRU forward and
-backward in phase 8) to the route its wrapper takes for that batch and mode.
+backward in phase 8, the attention-decoder loop in phase 7) to the route its
+wrapper takes for that batch and mode.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -180,7 +185,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 VGG_ROUTES = {"mma": 12, "direct": 1}
 # The kernels with two routes, each counting its launches per route.
 ROUTED = ("argmax_linear", "conv3x3_bn_relu", "lstm_seq_fwd", "lstm_seq_bwd", "fused_s2vt_fwd",
-          "fused_s2vt_bwd", "gru_seq_fwd", "gru_seq_bwd")
+          "fused_s2vt_bwd", "gru_seq_fwd", "gru_seq_bwd", "att_decode_fwd")
 
 
 def card_line() -> str:
@@ -311,21 +316,29 @@ def gru_seq_bwd_bound_ms(B: int, T: int, hid: int, dtype_name: str):
     return _bound(nbytes, 2 * T * B * G * hid, dtype_name)
 
 
-def att_decode_bound_ms(B: int, T: int, hid: int, L: int, dtype_name: str):
+def att_decode_bound_ms(B: int, T: int, hid: int, L: int, dtype_name: str,
+                        route: str = "direct"):
     """Least time for the attention-decoder loop: the weights (W_ctx, W_hh,
     W_att, b_att, w_apply), enc_wh, enc_out, xp and ctx0 read once and the h
     sequence written once, all float32; against, per step, the
     2*B*(2H*4H + H*4H + H*H) operations of the gate and dw products at the
-    peak rate of their operand type plus the 8*B*L*H of the scores and the
-    context at the float32 peak."""
+    peak rate of their operand type, float32 on the "mma" route (tensor
+    cores: P and the h products) as three TF32 passes at the TF32 peak (as
+    seq_bwd_bound_ms's cluster route), plus the 8*B*L*H of the scores and
+    the context at the float32 peak. Returns (ms, by, bytes, the function's
+    operations)."""
     G = 4 * hid
     nbytes = 4 * (G * 3 * hid + hid * hid + 2 * hid            # weights
                   + B * L * 3 * hid + T * B * G + B * 2 * hid  # enc_wh, enc_out, xp, ctx0
                   + T * B * hid)                               # out
     products = 2 * T * B * (G * 3 * hid + hid * hid)
     attention = 8 * T * B * L * hid
+    if dtype_name == "float32" and route == "mma":
+        t_products = 3 * products / PEAK_FLOPS["tf32"]
+    else:
+        t_products = products / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (products / PEAK_FLOPS[dtype_name] + attention / PEAK_FLOPS["float32"]) * 1e3
+    t_ops = (t_products + attention / PEAK_FLOPS["float32"]) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes,
             products + attention)
 
@@ -667,12 +680,18 @@ SEQ_ROUTES = {"lstm_seq_fwd": ("lstm_seq_fwd_route", "launch_fwd", ("mma", "dire
 # its route: (its route function, its routes).
 ROUTE_RULES = {**{k: (v[0], v[2]) for k, v in SEQ_ROUTES.items()},
                "fused_s2vt_fwd": ("fused_s2vt_fwd_route", ("mma", "direct")),
-               "fused_s2vt_bwd": ("fused_s2vt_bwd_route", ("mma", "direct"))}
+               "fused_s2vt_bwd": ("fused_s2vt_bwd_route", ("mma", "direct")),
+               "att_decode_fwd": ("att_decode_fwd_route", ("mma", "direct"))}
 
 
 def seq_route(name: str, hid: int, B: int, bf16: bool, device) -> str:
-    """The route ``name``'s wrapper takes for (H, B, mode) on ``device``."""
-    return getattr(_module(name), ROUTE_RULES[name][0])(hid, B, bf16, device)
+    """The route ``name``'s wrapper takes for (H, B, mode) on ``device``
+    (the attention-decoder loop's also for the L = LENGTH encoder
+    positions its main path runs)."""
+    fn = getattr(_module(name), ROUTE_RULES[name][0])
+    if name == "att_decode_fwd":
+        return fn(hid, LENGTH, B, bf16, device)
+    return fn(hid, B, bf16, device)
 
 
 def launch_route(name: str, args, bf16: bool, route: str):
@@ -824,38 +843,72 @@ def att_inputs(torch, B, T, hid, L, device, gen):
 
 def phase_att_kernel(torch, device, hid, length, batches, timed, reps, card):
     """The attention-decoder kernel against its plain version at the teacher-
-    forced decode length T = L - 1, every batch, float32 and bf16; kernel and
-    plain times beside the bound at ``timed``. No single PyTorch call
-    computes this loop, so it has no library time."""
+    forced decode length T = L - 1, every batch, float32 and bf16: each check
+    call's route (att_decode_fwd_route) printed and its launch held to it,
+    the other route checked on the same inputs (its launch held too); at
+    ``timed`` both routes timed in turns (routed, other, other, routed)
+    beside the bound and the plain time. No single PyTorch call computes this
+    loop, so it has no library time."""
     from s2vt_tpu_torch.ops import fused_att_decode as fa
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(2468)
     T = length - 1
     errors, times = {}, {}
+    on_card = device.type == "cuda"
     for B in batches:
         for name in ("float32", "bfloat16"):
             bf16 = name == "bfloat16"
             args = att_inputs(torch, B, T, hid, length, device, gen)
+            before = read_routes("att_decode_fwd")
             got = fa.att_decode_fwd(*args, bf16)
             sync()
-            _check(torch, "att_decode_fwd", B, name, hid, T, (got,),
-                   (fa.att_decode_fwd_reference(*args, bf16),), errors)
+            want = fa.att_decode_fwd_reference(*args, bf16)
+            _check(torch, "att_decode_fwd", B, name, hid, T, (got,), (want,), errors)
+            route = other = None
+            if on_card:
+                route = seq_route("att_decode_fwd", hid, B, bf16, device)
+                other = next(r for r in ROUTE_RULES["att_decode_fwd"][1] if r != route)
+                print(f"kernel att_decode_fwd B={B} {name} T={T}: route {route}", flush=True)
+                held_to_route("att_decode_fwd", before, route, f"B={B} {name} T={T}")
+                before = read_routes("att_decode_fwd")
+                got_other = fa.launch(*args, bf16, other)
+                sync()
+                held_to_route("att_decode_fwd", before, other, f"B={B} {name} T={T} ({other})")
+                _check(torch, f"att_decode_fwd[{other}]", B, name, hid, T, (got_other,),
+                       (want,), errors)
             if B not in timed:
                 continue
-            k_ms = cuda_ms(torch, lambda: fa.att_decode_fwd(*args, bf16), reps)
+            if on_card:
+                turns = [cuda_ms(torch, f, reps) for f in
+                         (lambda: fa.att_decode_fwd(*args, bf16),
+                          lambda: fa.launch(*args, bf16, other),
+                          lambda: fa.launch(*args, bf16, other),
+                          lambda: fa.att_decode_fwd(*args, bf16))]
+                k_ms, o_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            else:
+                k_ms = cuda_ms(torch, lambda: fa.att_decode_fwd(*args, bf16), reps)
             p_ms = cuda_ms(torch, lambda: fa.att_decode_fwd_reference(*args, bf16),
                            max(1, reps // 5), warmup=1)
-            bound, bound_by, nbytes, flops = att_decode_bound_ms(B, T, hid, length, name)
+            bound, bound_by, nbytes, flops = att_decode_bound_ms(B, T, hid, length, name,
+                                                                 route or "direct")
             times[("att_decode_fwd", B, name, T)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
                                                       bound_ms=bound, bound_by=bound_by)
+            route_note = ""
+            if on_card:
+                o_bound = att_decode_bound_ms(B, T, hid, length, name, other)[0]
+                times[("att_decode_fwd", B, name, T)].update(route=route, other_route=other,
+                                                          other_ms=o_ms, other_bound_ms=o_bound)
+                route_note = (f"route={route} {other}_route_ms={o_ms:.4f} "
+                              f"({o_ms / T * 1e3:.2f} us per step; bound {o_bound:.4f}, "
+                              f"share {o_bound / o_ms:.4f}) ")
             print(f"time att_decode_fwd B={B} T={T} L={length} {name}: kernel_ms={k_ms:.4f} "
-                  f"({k_ms / T * 1e3:.2f} us per step) plain_ms={p_ms:.4f} library_ms=none "
-                  f"(no single PyTorch call computes the loop) bound_ms={bound:.4f} ({bound_by}; "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) bound_share={bound / k_ms:.4f} "
-                  f"[{card}]", flush=True)
+                  f"({k_ms / T * 1e3:.2f} us per step) " + route_note + f"plain_ms={p_ms:.4f} "
+                  f"library_ms=none (no single PyTorch call computes the loop) "
+                  f"bound_ms={bound:.4f} ({bound_by}; {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP) bound_share={bound / k_ms:.4f} [{card}]", flush=True)
     worst = {name: max(e for (_, _, n, _), e in errors.items() if n == name)
              for name in ("float32", "bfloat16")}
-    print(f"kernel att_decode_fwd largest error over B={list(batches)}: "
+    print(f"kernel att_decode_fwd largest error over B={list(batches)}, both routes: "
           + ", ".join(f"{n} {e:.3e} (bound {ATOL[n]:.0e})" for n, e in worst.items()), flush=True)
     return errors, times
 
@@ -1620,7 +1673,8 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
             raise SystemExit(f"the attention training path launched {launches}, not {want}")
         if n_train % MAIN_BATCH or n_valid % MAIN_BATCH:
             raise SystemExit(f"the corpus splits ({n_train}, {n_valid}) are not whole batches")
-        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]} for k in SEQ_ROUTES}, device,
+        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]}
+                                 for k in (*SEQ_ROUTES, "att_decode_fwd")}, device,
                         "att training", card, hid)
         losses = hist["train_loss"] + hist["valid_loss"]
         if len(hist["train_loss"]) != epochs or not all(math.isfinite(x) for x in losses):
@@ -1664,12 +1718,24 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
                 model.use_pallas = route == "kernel"
                 fn = _no_grad_call(torch, lambda: model(feats_b, labels_b[:, :-1],
                                                         deterministic=True))
+                before = read_routes("att_decode_fwd")
                 fn()
                 med = median_s(fn, reps, sync)
                 print(f"att teacher_forced no-grad B={B} {route} route: {med * 1e3:.3f} ms "
                       f"(median of {reps}), {B / med:.1f} clips/s [{card}]", flush=True)
+                calls = reps + 1
                 if device.type == "cuda":
                     profile_call(torch, fn, med * 1e3, f"att teacher_forced B={B} {route}", card)
+                    calls += 1
+                    got = {k: v - before[k] for k, v in read_routes("att_decode_fwd").items()}
+                    want = dict.fromkeys(got, 0)
+                    if route == "kernel":
+                        want[seq_route("att_decode_fwd", hid, B, False, device)] = calls
+                    print(f"att teacher_forced no-grad B={B} {route} route: att_decode_fwd "
+                          f"launched {got} in {calls} passes [{card}]", flush=True)
+                    if got != want:
+                        raise SystemExit(f"att teacher_forced B={B} {route}: att_decode_fwd "
+                                         f"launched {got}, not {want}")
             model.use_pallas = True
         args = _random_batch(torch, MAIN_BATCH, length, feat, real_vocab, device, gen)
         for _ in range(2):
@@ -1681,7 +1747,7 @@ def phase_att(torch, device, seed, hid, feat, length, vocab, n_videos, epochs, t
             profile_call(torch, lambda: trainer.train_step(*args), med * 1e3,
                          f"att train step B={MAIN_BATCH} float32", card)
         time_requests(torch, device, model, args[0], reps, sync, "att AttBaseline", card)
-    return launches
+    return launches, routes
 
 
 def phase_serving(torch, device, ckpt, root, length, batch, reps, card, depth=BEAM_DEPTH):
@@ -1967,8 +2033,9 @@ def main() -> int:
                                         card=card, num_layers=2, dtypes=("float32",))
     stamp("phase 6")
     # 7. the attention baseline: kernel #7's main path (its validation pass)
-    att_launches = phase_att(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS,
-                             TRAIN_EPOCHS, timed=TIMED_BATCHES, reps=5, card=card)
+    att_launches, att_routes = phase_att(torch, device, args.seed, H, FEAT, LENGTH, VOCAB,
+                                         TRAIN_CLIPS, TRAIN_EPOCHS, timed=TIMED_BATCHES, reps=5,
+                                         card=card)
     stamp("phase 7")
     # 8. GRU S2VT: kernels #5 and #6 on their main paths (training; decode)
     gru_launches, _, gru_routes = phase_train(
@@ -2012,6 +2079,8 @@ def main() -> int:
             rows[-1]["route_launches"] = routes1[name]
         if name in ("gru_seq_fwd", "gru_seq_bwd"):
             rows[-1]["route_launches"] = gru_routes[name]
+        if name == "att_decode_fwd":
+            rows[-1]["route_launches"] = att_routes[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

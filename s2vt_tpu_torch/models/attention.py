@@ -126,7 +126,8 @@ class AttBaseline(nn.Module):
         embed [B, T, E] -> hs [B, T, H]."""
         from s2vt_tpu_torch.ops.fused_att_decode import att_decode_sequence, att_decode_shapes_ok
         L = enc_out.shape[1]
-        if not att_decode_shapes_ok(embed.shape[0], self.dim_hid, L, embed.device):
+        if not att_decode_shapes_ok(embed.shape[0], self.dim_hid, L, embed.device,
+                                    self.compute_dtype == torch.bfloat16):
             raise NotImplementedError(
                 f"the attention-decoder kernel does not serve hidden size {self.dim_hid} at "
                 f"L={L} on {embed.device}: its resident weights do not fit one block per SM; "
