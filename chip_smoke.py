@@ -83,6 +83,23 @@ Phases; a failure in any of them exits non-zero before the result line:
               (F.conv2d, TF32 off), clips/s; then cli.caption's ClipCaptioner
               with the greedy artifact over the clips written as frame
               directories.
+ 11. score    the scoring slice: a learnable corpus (data/learnable.py) at
+              MSVD feature shape, [80, 4096] float32, cut to 256/64/32 clips
+              and 32/16/16 atoms; cli.train --metric_eval_freq 1 at H = E =
+              512, B = 16, 3 epochs (launch counts read around it: the
+              metric eval greedy-decodes the valid split from the feature
+              bank, #1 once per request and #8 once per decode step);
+              history["metrics"] (seven finite scores per epoch), the last
+              eval's sentences and scores against the plain route;
+              python -m s2vt_tpu_torch.cli.eval greedy and --beam on the
+              final checkpoint in a process of its own, then cli.eval.main
+              in this one with its launch counts held (#1 and #8 per greedy
+              request, #3 twice per beam request), each against the plain
+              route; score_predictions at MSVD's counts (450 clips, ~41
+              references each) on the host, in all and stage by stage; the
+              learning gate (tools/learning_gate.py) in float32 and bf16
+              with use_pallas, and its shuffled-feature control; decode and
+              scoring ms of each metric eval, the phase's seconds.
 
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
 200} and two vocab sizes (in bf16 with a float32 W, direct route, and with a
@@ -96,7 +113,7 @@ mma route.
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel; and
 every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
-9 and 10, the LSTM sequence kernels in phases 4-9, the GRU forward and
+9, 10 and 11, the LSTM sequence kernels in phases 4-9, the GRU forward and
 backward in phase 8, the attention-decoder loop in phase 7) to the route its
 wrapper takes for that batch and mode.
 
@@ -1930,6 +1947,293 @@ def phase_extract(torch, device, seed, artifact, root, n_clips, frames, shape, r
     return launches, routes
 
 
+# Phase 11: the learnable corpus at MSVD feature shape, cut to SCORE_CLIPS
+# (train, valid, test) and SCORE_CATALOGS (subjects, verbs, objects) atoms.
+SCORE_CLIPS = (256, 64, 32)
+SCORE_CATALOGS = (32, 16, 16)
+SCORE_EPOCHS = 3
+METRIC_NAMES = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr")
+UNIT_METRICS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L")   # in [0, 1]
+# Host scoring at MSVD's counts: its 450 valid clips, and 30-52 references
+# a clip (mean ~41: about 80k English descriptions of 1,970 clips, Chen and
+# Dolan 2011), 3-9 words each.
+SCORE_COST_CLIPS = 450
+SCORE_COST_REFS = (30, 53)
+
+
+def check_scores(scores: dict, label: str) -> None:
+    """The seven scores, all finite; BLEU, METEOR and ROUGE-L in [0, 1]."""
+    if sorted(scores) != sorted(METRIC_NAMES) or not all(
+            math.isfinite(v) for v in scores.values()) or not all(
+            0.0 <= scores[k] <= 1.0 for k in UNIT_METRICS) or scores["CIDEr"] < 0:
+        raise SystemExit(f"{label}: scores missing, not finite or out of range: {scores}")
+
+
+def eval_cli_argv(dev_arg, final, meta, split, beam, out) -> list:
+    """cli.eval's flags: ``final`` decoded on the card unless ``dev_arg``,
+    at B = MAIN_BATCH, greedy or beam, its predictions dumped to ``out``."""
+    argv = ["--model_path", final, "--caption_file", meta["captions_file"],
+            "--feats_path", meta["feat_path"], "--gts_file", meta["gts_file"],
+            "--split", split, "--batch_size", str(MAIN_BATCH), "--dump_predictions", out]
+    if beam:
+        argv += ["--beam", "--beam_width", str(BEAM_WIDTH), "--max_beam_depth", str(BEAM_DEPTH)]
+    return argv + (["--device", dev_arg] if dev_arg else [])
+
+
+def eval_cli_run(dev_arg, final, meta, split, beam, root, label, card) -> tuple:
+    """``python -m s2vt_tpu_torch.cli.eval`` on ``final`` in a process of its
+    own (on the card unless ``dev_arg``): (its predictions, its printed
+    scores, wall seconds)."""
+    out = os.path.join(root, f"eval_{label}.json")
+    cmd = [sys.executable, "-m", "s2vt_tpu_torch.cli.eval",
+           *eval_cli_argv(dev_arg, final, meta, split, beam, out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"cli.eval {label} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    scores = {}
+    for line in proc.stdout.splitlines():
+        name, _, value = line.partition(": ")
+        scores[name] = float(value)
+    check_scores(scores, f"cli.eval {label}")
+    with open(out, encoding="utf-8") as f:
+        return json.load(f), scores, wall
+
+
+def msvd_scoring_load(seed: int, n_clips: int = SCORE_COST_CLIPS,
+                      refs: tuple = SCORE_COST_REFS) -> tuple:
+    """(gts, predictions) at MSVD's valid-split counts: each clip a (subject,
+    verb, object) triple from the full-size learnable catalogs (440/280/280
+    atoms), its references drawn from ten templates, some with an
+    adjective, adverb or place; its prediction the first template's
+    sentence, with the object wrong for about 3 clips in 10, as a trained
+    greedy decode reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    templates = ("a {s} is {v} a {o}", "the {s} is {v} the {o}", "{s} {v} {o}",
+                 "a {s} {v} the {o}", "a {a} {s} is {v} a {o}", "a {s} is {v} a {o} {d}",
+                 "a {s} is {v} a {o} in the {p}", "the {a} {s} {v} a {a} {o} on the {p}",
+                 "someone is {v} a {o}", "a {s} is {v}")
+    gts, preds = {}, {}
+    for c in range(n_clips):
+        vid = f"clip{c:05d}"
+        s, v, o = (int(rng.integers(n)) for n in (440, 280, 280))
+        caps = [templates[int(rng.integers(len(templates)))].format(
+            s=f"subj{s}", v=f"verb{v}", o=f"obj{o}", a=f"adj{int(rng.integers(60))}",
+            d=f"adv{int(rng.integers(30))}", p=f"place{int(rng.integers(60))}")
+            for _ in range(int(rng.integers(*refs)))]
+        gts[vid] = [{"image_id": vid, "cap_id": j, "caption": x, "tokenized": x}
+                    for j, x in enumerate(caps)]
+        wrong = rng.random() >= 0.7
+        preds[vid] = f"a subj{s} is verb{v} a obj{int(rng.integers(280)) if wrong else o}"
+    return gts, preds
+
+
+def score_cost(seed: int, card: str) -> dict:
+    """Host scoring at MSVD's counts (msvd_scoring_load): one
+    score_predictions call, the call a metric eval makes, then its stages
+    (the PTB tokenizer and each metric) timed one by one. Returns the ms."""
+    from s2vt_tpu_torch.evaluation.scorer import score_predictions
+    from s2vt_tpu_torch.metrics import Bleu, Cider, Meteor, PTBTokenizer, Rouge
+
+    gts, preds = msvd_scoring_load(seed)
+    n_refs = sum(len(g) for g in gts.values())
+    words = sum(len(x["caption"].split()) for g in gts.values() for x in g) / n_refs
+    t0 = time.perf_counter()
+    scores = score_predictions(preds, gts, verbose=False)
+    ms = {"score_predictions": (time.perf_counter() - t0) * 1e3}
+    check_scores(scores, "MSVD-count scoring")
+    tok = PTBTokenizer()
+    t0 = time.perf_counter()
+    g = tok.tokenize(gts)
+    r = tok.tokenize({k: [{"image_id": k, "caption": v}] for k, v in preds.items()})
+    ms["tokenize"] = (time.perf_counter() - t0) * 1e3
+    for name, scorer in (("Bleu", Bleu(4)), ("METEOR", Meteor()), ("ROUGE_L", Rouge()),
+                         ("CIDEr", Cider())):
+        t0 = time.perf_counter()
+        scorer.compute_score(g, r)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    print(f"host scoring at MSVD's counts: {len(gts)} clips, {n_refs} references "
+          f"({n_refs / len(gts):.2f} a clip, {words:.2f} words each): score_predictions "
+          f"{ms['score_predictions']:.3f} ms; stages one by one (ms) "
+          f"{ {k: round(v, 3) for k, v in ms.items() if k != 'score_predictions'} }; "
+          f"scores {scores} [{card}]", flush=True)
+    return ms
+
+
+def phase_score(torch, device, seed, hid, feat, length, card, clips=SCORE_CLIPS,
+                catalogs=SCORE_CATALOGS, epochs=SCORE_EPOCHS, gate=True):
+    """The scoring slice: a learnable corpus at the given clip and catalog
+    counts, cli.train with --metric_eval_freq 1 (launch counts read around
+    it and held to s2vt_launches: the metric eval adds #1 once per valid
+    request and #8 once per decode step), history["metrics"] checked, the
+    last eval's sentences against the plain route, cli.eval greedy and beam
+    on the final checkpoint in a process of their own and in this one
+    (launch counts read around it and held to s2vt_launches) against the
+    plain route, host scoring at MSVD's counts (score_cost), and the
+    learning gate (tools/learning_gate.py) in float32 and bf16 with its
+    shuffled-feature control. Returns the main-path launches."""
+    from s2vt_tpu_torch.cli import eval as eval_cli
+    from s2vt_tpu_torch.cli import train as train_cli
+    from s2vt_tpu_torch.data.learnable import make_learnable_corpus
+    from s2vt_tpu_torch.evaluation.decode import beam_eval, greedy_eval
+    from s2vt_tpu_torch.evaluation.scorer import score_predictions
+    from s2vt_tpu_torch.tools import learning_gate
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    dev_arg = None if device.type == "cuda" else "cpu"
+    n_train, n_valid, n_test = clips
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        meta = make_learnable_corpus(os.path.join(root, "corpus"), n_train=n_train,
+                                     n_valid=n_valid, n_test=n_test, n_subjects=catalogs[0],
+                                     n_verbs=catalogs[1], n_objects=catalogs[2],
+                                     feat_len=length, feat_dim=feat, seed=seed)
+        print(f"learnable corpus: {n_train}/{n_valid}/{n_test} clips of [{length}, {feat}] "
+              f"float32, catalogs {catalogs}, V={meta['vocab_size']}, made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        argv = ([] if dev_arg is None else ["--device", dev_arg]) + [
+            "--caption_file", meta["captions_file"], "--feats_path", meta["feat_path"],
+            "--gts_file", meta["gts_file"], "--train_length", str(length),
+            "--dim_hidden", str(hid), "--dim_embed", str(hid), "--feat_dim", str(feat),
+            "--batch_size", str(MAIN_BATCH), "--eval_batch_size", str(MAIN_BATCH),
+            "--use_pallas", "true", "--compute_dtype", "float32", "--EPOCHS", str(epochs),
+            "--metric_eval_freq", "1", "--lr", "1e-3", "--seed", str(seed),
+            "--save_path", f"{root}/ckpt", "--log_dir", f"{root}/runs"]
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        routes = {k: read_routes(k) for k in ROUTE_RULES}
+        hist = trainer.history
+        if (len(trainer.train_ds), len(trainer.valid_ds)) != (n_train, n_valid) or (
+                n_train % MAIN_BATCH or n_valid % MAIN_BATCH or n_test % MAIN_BATCH):
+            raise SystemExit(f"the corpus splits ({len(trainer.train_ds)}, "
+                             f"{len(trainer.valid_ds)}) are not whole batches")
+        per_train, per_valid, per_greedy, per_beam = s2vt_launches("lstm", 1, length)
+        train_steps = epochs * n_train // MAIN_BATCH
+        valid_steps = epochs * n_valid // MAIN_BATCH
+        evals = len(hist.get("metrics", []))
+        requests = evals * n_valid // MAIN_BATCH
+        print(f"score cli.train --metric_eval_freq 1 -> Trainer.fit: V={trainer.vocab_size} "
+              f"H={hid} F={feat} L={length} B={MAIN_BATCH} f32, {epochs} epochs "
+              f"({train_steps} train steps, {valid_steps} valid steps, {evals} metric evals "
+              f"of {requests // max(1, evals)} greedy requests) in {wall:.3f} s; "
+              f"train_loss={hist['train_loss']} launches={launches} "
+              f"bank={trainer.use_feature_bank} [{card}]", flush=True)
+        want = expect(train=(per_train, train_steps), valid=(per_valid, valid_steps),
+                      requests=(per_greedy, requests))
+        if evals != epochs or launches != want:
+            raise SystemExit(f"the scoring path ran {evals} metric evals and launched "
+                             f"{launches}, not {epochs} and {want}")
+        hold_seq_routes(routes, {k: {MAIN_BATCH: launches[k]} for k in ROUTE_RULES}, device,
+                        "score training", card, hid)
+        if [m["epoch"] for m in hist["metrics"]] != list(range(epochs)):
+            raise SystemExit(f"history['metrics'] epochs: {hist['metrics']}")
+        for m in hist["metrics"]:
+            check_scores({k: v for k, v in m.items() if k != "epoch"}, f"epoch {m['epoch']}")
+        last = {k: v for k, v in hist["metrics"][-1].items() if k != "epoch"}
+        for i, t in enumerate(trainer.metric_eval_ms):
+            print(f"metric eval {i}: decode {t['decode']:.3f} ms (greedy, {n_valid} valid "
+                  f"clips in {n_valid // MAIN_BATCH} requests of B={MAIN_BATCH}, synchronised "
+                  f"by the host copy of the tokens), scoring {t['score']:.3f} ms (host) "
+                  f"[{card}]", flush=True)
+        ms = trainer.metric_eval_ms
+        print(f"metric eval mean of {len(ms)}: decode "
+              f"{sum(t['decode'] for t in ms) / len(ms):.3f} ms, scoring "
+              f"{sum(t['score'] for t in ms) / len(ms):.3f} ms per call; last scores {last} "
+              f"[{card}]", flush=True)
+
+        # The last eval's valid sentences against the plain route.
+        dec = trainer._metric_decoder
+        with open(meta["gts_file"], encoding="utf-8") as f:
+            gts = json.load(f)["gts"]
+        preds = dec.greedy(MAIN_BATCH)
+        if score_predictions(preds, gts, verbose=False) != last:
+            raise SystemExit("the valid split decoded again scores otherwise than the last "
+                             "metric eval")
+        with plain_kernels():
+            plain_preds = dec.greedy(MAIN_BATCH)
+        same = sum(preds[k] == plain_preds.get(k) for k in preds) / max(1, len(preds))
+        plain_scores = score_predictions(plain_preds, gts, verbose=False)
+        print(f"score: last eval's {len(preds)} valid sentences equal to the plain route: "
+              f"{same:.4f}; plain route scores {plain_scores}; e.g. "
+              f"{next(iter(preds.items()), None)} [{card}]", flush=True)
+        if len(preds) != n_valid or same < ROW_MATCH_MIN_F32:
+            raise SystemExit(f"the metric eval's sentences differ from the plain route: {same}")
+        if same == 1.0 and plain_scores != last:
+            raise SystemExit(f"equal sentences, unequal scores: {plain_scores} != {last}")
+
+        # cli.eval on the final checkpoint: in a process of its own, then in
+        # this one with its launch counts read around it.
+        final = os.path.join(trainer.opt.save_path, trainer.opt.start_time + "final")
+        n_requests = n_test // MAIN_BATCH
+        for name, beam, entry, kw, per_request in (
+                ("greedy", False, greedy_eval, {}, per_greedy),
+                ("beam", True, beam_eval, dict(beam_width=BEAM_WIDTH,
+                                               max_beam_depth=BEAM_DEPTH), per_beam)):
+            got, scores, cli_wall = eval_cli_run(dev_arg, final, meta, "test", beam, root,
+                                                 name, card)
+            in_out = os.path.join(root, f"eval_{name}_in_process.json")
+            reset_launches()
+            in_scores = eval_cli.main(eval_cli_argv(dev_arg, final, meta, "test", beam, in_out))
+            sync()
+            in_launches = read_launches()
+            in_routes = {k: read_routes(k) for k in ROUTE_RULES}
+            with open(in_out, encoding="utf-8") as f:
+                in_got = json.load(f)
+            with plain_kernels():
+                plain = entry(final, meta["captions_file"], meta["feat_path"],
+                              batch_size=MAIN_BATCH, mode="test", device=dev_arg, **kw)
+            same = sum(got[k] == plain.get(k) for k in got) / max(1, len(got))
+            in_same = sum(in_got[k] == plain.get(k) for k in in_got) / max(1, len(in_got))
+            plain_scores = score_predictions(plain, gts, verbose=False)
+            print(f"score: python -m s2vt_tpu_torch.cli.eval {name} on the final checkpoint: "
+                  f"{len(got)} test clips in {cli_wall:.3f} s wall (a process of its own), "
+                  f"scores {scores}; predictions equal to the plain route's {entry.__name__}: "
+                  f"{same:.4f}; in this process: launches={in_launches}, predictions equal "
+                  f"to the plain route's {in_same:.4f} [{card}]", flush=True)
+            want = expect(requests=(per_request, n_requests))
+            if in_launches != want:
+                raise SystemExit(f"cli.eval {name} launched {in_launches} for {n_requests} "
+                                 f"requests, not {want}")
+            hold_seq_routes(in_routes, {k: {MAIN_BATCH: in_launches[k]} for k in ROUTE_RULES},
+                            device, f"score cli.eval {name}", card, hid)
+            check_scores(in_scores, f"cli.eval {name} in this process")
+            for label, preds_, agree in (("its own process", got, same),
+                                         ("this process", in_got, in_same)):
+                if len(preds_) != n_test or agree < ROW_MATCH_MIN_F32:
+                    raise SystemExit(f"cli.eval {name} predictions in {label} differ from the "
+                                     f"plain route: {agree}")
+            if same == 1.0 and scores != {k: float(f"{v:.4f}") for k, v in plain_scores.items()}:
+                raise SystemExit(f"cli.eval {name}: equal predictions, unequal scores: "
+                                 f"{scores} against {plain_scores}")
+            if in_same == 1.0 and in_scores != plain_scores:
+                raise SystemExit(f"cli.eval {name} in this process: equal predictions, unequal "
+                                 f"scores: {in_scores} against {plain_scores}")
+
+    score_cost(seed, card)
+    if gate:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            out = learning_gate.run(root, dev_arg, ("float32", "bfloat16"),
+                                    log=lambda s: print(f"{s} [{card}]", flush=True))
+        failed = {k: r["failures"] for k, r in out.items() if r["failures"]}
+        print(f"learning gate at {learning_gate.SHAPE} with use_pallas: "
+              f"{'passed' if not failed else failed} in {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+        if failed:
+            raise SystemExit(f"the learning gate failed: {failed}")
+    print(f"phase 11 (score): {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2042,6 +2346,9 @@ def main() -> int:
         torch, device, args.seed, H, FEAT, LENGTH, VOCAB, TRAIN_CLIPS, TRAIN_EPOCHS,
         batches=(MAIN_BATCH,), reps=5, card=card, dtypes=("float32",), rnn_type="gru")
     stamp("phase 8")
+    # 11. the scoring slice: the metric eval in training, cli.eval, the gate
+    phase_score(torch, device, args.seed, H, FEAT, LENGTH, card)
+    stamp("phase 11")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
     # at the T of that path (#5: GRU training, where 24 of its 32 phase-8

@@ -40,9 +40,12 @@ def opt_from_args(args: argparse.Namespace, base: Opt) -> Opt:
 
 def _print_epoch(trainer, epoch: int) -> None:
     h = trainer.history
+    metrics = h.get("metrics", [])
+    scores = "".join(f" {k} {v:.4f}" for k, v in metrics[-1].items() if k != "epoch"
+                     ) if metrics and metrics[-1]["epoch"] == epoch else ""
     print(f"epoch {epoch}: train_loss {h['train_loss'][-1]:.4f} valid_loss "
           f"{h['valid_loss'][-1]:.4f} lr {h['lr'][-1]:.2e} "
-          f"clips/s {h['clips_per_sec'][-1]:.1f}", flush=True)
+          f"clips/s {h['clips_per_sec'][-1]:.1f}{scores}", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -1,10 +1,11 @@
 """Inference harness: greedy and beam caption decoding over a dataset split.
 
 Counterpart of ``s2vt_tpu/evaluation/decode.py`` (the reference's ``eval()``
-and ``beam_eval()``, eval.py:30-99; the scorer and the CLIs come in a later
-slice). The model is rebuilt from the checkpoint's ``opt.json`` and its
-weights loaded from ``params.npz`` (training/checkpoint.py). Batches are
-fixed-shape with a ``valid`` row mask. Decoding runs on one device.
+and ``beam_eval()``, eval.py:30-99; scoring is ``evaluation/scorer.py``, the
+command line ``cli/eval.py``). The model is rebuilt from the checkpoint's
+``opt.json`` and its weights loaded from ``params.npz``
+(training/checkpoint.py). Batches are fixed-shape with a ``valid`` row mask.
+Decoding runs on one device.
 
 Every entry point takes ``device=None``, meaning the card; without a card it
 raises unless the caller passes ``device="cpu"``.
@@ -28,13 +29,21 @@ from s2vt_tpu_torch.utils.weights import params_from_jax
 class CaptionDecoder:
     """Batch decoding of a ``VideoDataset`` split with a model that holds its
     weights (S2VT or the attention baseline): greedy, or beam search with the
-    given width, depth and score mode."""
+    given width, depth and score mode.
+
+    ``feature_bank``: an optional [N, L, D] tensor on ``device``, row i the
+    features of ``dataset.feat_paths[i]`` (the Trainer's bank). With it,
+    batches read no features from disk; each batch's rows are gathered on
+    the device by ``Batch.rows``, so repeated decodes (the Trainer's metric
+    eval) do not stream the split again."""
 
     def __init__(self, model: Model, dataset: VideoDataset, device=None, beam_width: int = 3,
-                 max_beam_depth: int = 30, beam_score_mode: str = "cumulative"):
+                 max_beam_depth: int = 30, beam_score_mode: str = "cumulative",
+                 feature_bank: Optional[torch.Tensor] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dataset = dataset
+        self.bank = feature_bank
         sp = dataset.specials
         self.eos_ix, self.sos_ix, self.pad_ix = sp["eos_ix"], sp["sos_ix"], sp["pad_ix"]
         self.beam_width, self.max_beam_depth = beam_width, max_beam_depth
@@ -45,8 +54,13 @@ class CaptionDecoder:
         features to token rows [B, n], cut at the first <eos> (and stripped of
         leading ``sos_ix`` tokens when it is given)."""
         preds: Dict[str, str] = {}
-        for batch in self.dataset.batches(batch_size, shuffle=False):
-            out = decode(torch.from_numpy(batch.feats).to(self.device)).cpu().numpy()
+        for batch in self.dataset.batches(batch_size, shuffle=False,
+                                          include_feats=self.bank is None):
+            if self.bank is not None:
+                feats = self.bank[torch.from_numpy(batch.rows).to(self.device, torch.long)]
+            else:
+                feats = torch.from_numpy(batch.feats).to(self.device)
+            out = decode(feats).cpu().numpy()
             for row, vid in enumerate(batch.ids):
                 if batch.valid[row] == 0.0 or not vid:
                     continue

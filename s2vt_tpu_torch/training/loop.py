@@ -12,12 +12,17 @@ checkpoints), on one device:
    row indices cross from the host per step.
  - Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch,
    step), the role of the JAX package's ``fold_in`` keys.
+ - With ``Opt.metric_eval_freq`` > 0, every that many epochs the valid
+   split is greedy-decoded (from the feature bank when there is one) and
+   scored against ``Opt.gts_file`` (BLEU, METEOR, ROUGE-L, CIDEr), into
+   ``history["metrics"]``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import time
@@ -89,8 +94,6 @@ def _refuse_unported(opt: Opt) -> None:
     """Options of the JAX Trainer that the port does not have yet raise here,
     naming their ROADMAP.md item, instead of being skipped."""
     unported = [
-        (opt.metric_eval_freq > 0, "metric_eval_freq > 0 (greedy metrics during training)",
-         "queue 1, item 3: metrics and scorer"),
         (bool(opt.glove_path), "glove_path (GloVe warm start)", "queue 1, item 10"),
         (opt.profile, "profile (trace of the first epoch)", "queue 1, item 10"),
         (tuple(opt.mesh_shape) != (1, 1), f"mesh_shape={tuple(opt.mesh_shape)}",
@@ -172,6 +175,8 @@ class Trainer:
                                          "clips_per_sec": []}
         self.epochs_done = 0
         self._stop_requested = False
+        self._metric_decoder = None
+        self.metric_eval_ms: list = []   # per metric eval: {"decode": ms, "score": ms}
 
     # ------------------------------------------------------------------
 
@@ -286,6 +291,8 @@ class Trainer:
                 self.history["lr"].append(lr)
                 self.history["clips_per_sec"].append(cps)
                 self.epochs_done = epoch + 1
+                if opt.metric_eval_freq > 0 and (epoch + 1) % opt.metric_eval_freq == 0:
+                    self._metric_eval(epoch)
                 if on_epoch_end is not None:
                     on_epoch_end(self, epoch)
                 if self.early(valid_loss):
@@ -298,6 +305,32 @@ class Trainer:
             # The reference saves and exits on Ctrl-C (train.py:170-175): fall
             # through to the 'final' checkpoint.
             pass
+
+    def _metric_eval(self, epoch: int) -> Optional[dict]:
+        """Greedy-decode the valid split at ``eval_batch_size`` and score it
+        against ``opt.gts_file`` (BLEU-1..4, METEOR, ROUGE-L, CIDEr); the
+        scores go into ``history["metrics"]`` with their epoch. Returns them,
+        or None when the gts file is missing. The decoder is built once, over
+        the valid feature bank when the Trainer keeps one."""
+        from s2vt_tpu_torch.evaluation.decode import CaptionDecoder
+        from s2vt_tpu_torch.evaluation.scorer import score_predictions
+
+        try:
+            with open(self.opt.gts_file, encoding="utf-8") as f:
+                gts = json.load(f)["gts"]
+        except FileNotFoundError:
+            return None
+        if self._metric_decoder is None:
+            self._metric_decoder = CaptionDecoder(self.model, self.valid_ds, self.device,
+                                                  feature_bank=self._bank.get("valid"))
+        t0 = time.perf_counter()
+        preds = self._metric_decoder.greedy(self.opt.eval_batch_size)   # ends on the host
+        t1 = time.perf_counter()
+        scores = score_predictions(preds, gts, verbose=False)
+        self.metric_eval_ms.append({"decode": (t1 - t0) * 1e3,
+                                    "score": (time.perf_counter() - t1) * 1e3})
+        self.history.setdefault("metrics", []).append({"epoch": epoch, **scores})
+        return scores
 
     # ------------------------------------------------------------------
 

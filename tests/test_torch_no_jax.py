@@ -1,5 +1,5 @@
-"""The port stands alone: every module of s2vt_tpu_torch imports with JAX
-blocked, and none of them loads the JAX package s2vt_tpu."""
+"""The port stands alone: every module of s2vt_tpu_torch imports with JAX and
+nltk blocked, and none of them loads the JAX package s2vt_tpu."""
 
 import os
 import subprocess
@@ -10,6 +10,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, pkgutil, sys
 sys.modules['jax'] = None
+sys.modules['nltk'] = None
 import s2vt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(s2vt_tpu_torch.__path__, 's2vt_tpu_torch.')]
 for name in names:
@@ -37,6 +38,13 @@ REQUIRED = {
     "s2vt_tpu_torch.extract.video", "s2vt_tpu_torch.extract.preprocess",
     "s2vt_tpu_torch.extract.backbones", "s2vt_tpu_torch.extract.torch_weights",
     "s2vt_tpu_torch.extract.pipeline", "s2vt_tpu_torch.utils.weights",
+    "s2vt_tpu_torch.data.learnable", "s2vt_tpu_torch.utils.native_build",
+    "s2vt_tpu_torch.metrics", "s2vt_tpu_torch.metrics.porter",
+    "s2vt_tpu_torch.metrics.tokenizer", "s2vt_tpu_torch.metrics.bleu",
+    "s2vt_tpu_torch.metrics.rouge", "s2vt_tpu_torch.metrics.cider",
+    "s2vt_tpu_torch.metrics.meteor", "s2vt_tpu_torch.evaluation",
+    "s2vt_tpu_torch.evaluation.scorer", "s2vt_tpu_torch.evaluation.coco_eval",
+    "s2vt_tpu_torch.cli.eval", "s2vt_tpu_torch.tools.learning_gate",
 }
 
 

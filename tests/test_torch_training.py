@@ -234,8 +234,7 @@ def test_sigterm_stops_after_the_epoch_and_resumes(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("metric_eval_freq", 1), ("glove_path", "glove.txt"), ("profile", True),
-    ("mesh_shape", (2, 1))])
+    ("glove_path", "glove.txt"), ("profile", True), ("mesh_shape", (2, 1))])
 def test_unported_options_raise(corpus, tmp_path, field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         port_trainer(corpus, tmp_path, **{field: value})
