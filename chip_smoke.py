@@ -100,6 +100,28 @@ Phases; a failure in any of them exits non-zero before the result line:
               learning gate (tools/learning_gate.py) in float32 and bf16
               with use_pallas, and its shuffled-feature control; decode and
               scoring ms of each metric eval, the phase's seconds.
+ 12. data     the data slice: a seeded MSVD-format video_corpus.csv (other
+              languages, unverified rows, a row with an empty field, a quoted
+              description with a comma) over 256/64/32 clips of [80, 4096]
+              float32 features; python -m s2vt_tpu_torch.cli.prepare msvd in a
+              process of its own (split sizes checked); then Trainer.fit, 2
+              epochs at H = E = 512, V = 10240, B = 16, f32, use_pallas, each
+              with the GloVe warm start from a seeded file at width 512: (a)
+              the device feature bank, prefetch depth 1, blocking saves; (b) streamed
+              through the native C++ loader (effective_backend() asserted)
+              into pinned memory and copied on the Trainer's copy stream,
+              prefetch depth 2, async saves every epoch, epoch 0 profiled; (c)
+              streamed through numpy, depth 1 (launch counts read around each
+              fit and held to s2vt_launches); (b)'s and (c)'s losses and final
+              checkpoints equal to (a)'s bit for bit; (b)'s GloVe rows equal to
+              the file's; the trace's CUDA kernel events beside the launch
+              counter's, its host-to-device copies and their share under
+              kernels; the TensorBoard tags where tensorboardX imports; train
+              clips/s three ways, async and blocking save ms, host ms per
+              streamed batch (native into pinned memory, native then a pinned
+              copy, numpy), a batch's pinned and pageable copy ms; train epochs
+              in turns: the bank, and (b)'s with and without the host
+              read-ahead thread.
 
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
 200} and two vocab sizes (in bf16 with a float32 W, direct route, and with a
@@ -113,7 +135,7 @@ mma route.
 Every launch count read is held exactly to what the path should launch
 (s2vt_launches): each kernel where its slice says, and no other kernel; and
 every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
-9, 10 and 11, the LSTM sequence kernels in phases 4-9, the GRU forward and
+9, 10, 11 and 12, the LSTM sequence kernels in phases 4-9, the GRU forward and
 backward in phase 8, the attention-decoder loop in phase 7) to the route its
 wrapper takes for that batch and mode.
 
@@ -128,6 +150,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2234,6 +2257,360 @@ def phase_score(torch, device, seed, hid, feat, length, card, clips=SCORE_CLIPS,
     return launches
 
 
+DATA_CLIPS = (256, 64, 32)     # phase 12: the MSVD-format corpus's train / valid / test clips
+DATA_EPOCHS = 2
+DATA_WORDS = ("a", "the", "man", "woman", "boy", "girl", "dog", "cat", "horse", "person", "is",
+              "are", "playing", "riding", "cutting", "slicing", "cooking", "running", "jumping",
+              "dancing", "singing", "eating", "guitar", "piano", "onion", "potato", "bicycle",
+              "ball", "water", "road", "field", "kitchen", "stage", "on", "in", "with", "and",
+              "into", "small", "large", "red", "white", "black", "young", "old", "quickly")
+# GloVe words outside the corpus's vocabulary.
+GLOVE_EXTRA = tuple(f"zz{i}" for i in range(8)) + ("zebra", "xylophone")
+
+
+def msvd_csv(path: str, n_clips: int, seed: int) -> list:
+    """A seeded MSVD-format video_corpus.csv (VideoID, Start, End, WorkerID,
+    Source, AnnotationTime, Language, Description) over ``n_clips`` clips;
+    returns their ids as cli.prepare names them ('{VideoID}_{Start}_{End}').
+    Each clip has 3-6 English descriptions from the clean source and one
+    unverified; every fifth clip rows in other languages; one row has an
+    empty AnnotationTime (pandas' dropna drops it); one quoted description
+    holds a comma."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows, ids = [], []
+    for i in range(n_clips):
+        vid = f"v{i:04d}{''.join(rng.choice(list('abcdefghijk'), 6))}"
+        start = int(rng.integers(0, 200))
+        end = start + int(rng.integers(3, 30))
+        ids.append(f"{vid}_{start}_{end}")
+        for source, n in (("clean", int(rng.integers(3, 7))), ("unverified", 1)):
+            for _ in range(n):
+                sent = " ".join(rng.choice(DATA_WORDS, int(rng.integers(4, 12))))
+                rows.append([vid, start, end, int(rng.integers(1, 900)), source,
+                             int(rng.integers(5, 90)), "English", sent.capitalize() + "."])
+        if i % 5 == 0:
+            rows.append([vid, start, end, 3, "clean", 20, "Spanish", "un hombre toca la guitarra"])
+            rows.append([vid, start, end, 4, "unverified", 21, "German", "ein Mann spielt"])
+    rows[3][5] = ""
+    rows[7][7] = "A man, a dog and a cat play."
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["VideoID", "Start", "End", "WorkerID", "Source", "AnnotationTime", "Language",
+                    "Description"])
+        w.writerows(rows)
+    return ids
+
+
+def glove_file(path: str, word2ix: dict, dim: int, seed: int) -> dict:
+    """A seeded GloVe text file at width ``dim``: every other word of the
+    corpus's vocabulary (specials excluded) and GLOVE_EXTRA. Returns
+    {word: the float32 vector its line holds}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = [w for w in sorted(word2ix) if not w.startswith("<")][::2] + list(GLOVE_EXTRA)
+    vecs = {}
+    with open(path, "w", encoding="utf-8") as f:
+        for w in words:
+            text = [f"{x:.6f}" for x in rng.normal(scale=0.4, size=dim)]
+            vecs[w] = np.array([float(x) for x in text], np.float32)
+            f.write(w + " " + " ".join(text) + "\n")
+    return vecs
+
+
+def read_events(log_dir: str) -> tuple:
+    """(scalar tags, histogram tags) of the TensorBoard event files in
+    ``log_dir``, read record by record with tensorboardX's protobuf."""
+    import glob
+    import struct
+
+    from tensorboardX.proto import event_pb2
+
+    scalars, hists = set(), set()
+    for path in glob.glob(os.path.join(log_dir, "events.out.tfevents.*")):
+        with open(path, "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos + 12 <= len(data):
+            (n,) = struct.unpack("<Q", data[pos:pos + 8])
+            ev = event_pb2.Event()
+            ev.ParseFromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            for v in ev.summary.value:
+                (hists if v.WhichOneof("value") == "histo" else scalars).add(v.tag)
+    return scalars, hists
+
+
+def trace_kernels(log_dir: str) -> dict:
+    """From the Chrome trace in ``log_dir``: CUDA kernel events, our kernels'
+    events, host-to-device copies, their ms, and the share of the copies'
+    time that ran while a kernel ran."""
+    import glob
+
+    paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(paths) != 1:
+        raise SystemExit(f"{log_dir} holds {len(paths)} traces, not 1")
+    with open(paths[0], encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    copy_us = sum(e["dur"] for e in copies)
+    hidden_us = sum(max(0.0, min(e["ts"] + e["dur"], b) - max(e["ts"], a))
+                    for e in copies for a, b in merged)
+    return {"file": os.path.basename(paths[0]), "kernel_events": len(kernels),
+            "ours": {k: sum(SYMBOLS[k] in e["name"] for e in kernels)
+                     for k in ("fused_s2vt_fwd", "fused_s2vt_bwd")},
+            "h2d_copies": len(copies), "h2d_ms": copy_us / 1e3,
+            "h2d_under_kernels": hidden_us / max(copy_us, 1e-9)}
+
+
+def checkpoint_arrays(path: str) -> dict:
+    import numpy as np
+    out = {}
+    for name in ("params.npz", "optimizer.npz"):
+        with np.load(os.path.join(path, name)) as z:
+            out.update({f"{name}:{k}": z[k] for k in z.files})
+    return out
+
+
+def phase_data(torch, device, seed, hid, feat, length, vocab, card, clips=DATA_CLIPS,
+               epochs=DATA_EPOCHS, reps=3):
+    """The data slice: an MSVD-format CSV through ``python -m
+    s2vt_tpu_torch.cli.prepare msvd`` in a process of its own, then Trainer.fit
+    three ways on its splits, the vocabulary padded to ``vocab`` rows as in
+    phase 4, each with the GloVe warm start: (a) the device
+    feature bank, prefetch depth 1, blocking saves; (b) streamed through the
+    native loader from pinned memory on the copy stream, prefetch depth 2,
+    async saves every epoch, the first train epoch profiled; (c) streamed
+    through numpy, depth 1. Launches read around each fit and held exactly
+    to s2vt_launches; (b)'s and (c)'s losses and final checkpoints equal to
+    (a)'s bit for bit; (b)'s GloVe rows equal to the file's; the trace's
+    kernels; the TensorBoard tags where tensorboardX imports; clips/s, save
+    and host batch times. Returns (a)'s launches."""
+    import numpy as np
+
+    from s2vt_tpu_torch.config import Opt
+    from s2vt_tpu_torch.data.corpus import load_captions
+    from s2vt_tpu_torch.data.dataset import VideoDataset
+    from s2vt_tpu_torch.training import Trainer, loop, wait_for_saves
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    n_train, n_valid, n_test = clips
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ids = msvd_csv(os.path.join(root, "video_corpus.csv"), sum(clips), seed)
+        rng = np.random.default_rng(seed + 1)
+        os.makedirs(os.path.join(root, "feats"))
+        for vid in ids:
+            np.save(os.path.join(root, "feats", f"{vid}.npy"),
+                    rng.standard_normal((length, feat), dtype=np.float32))
+        t_feats = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "s2vt_tpu_torch.cli.prepare", "msvd", "--csv_file",
+               os.path.join(root, "video_corpus.csv"), "--captions_file",
+               os.path.join(root, "captions.json"), "--gts_file", os.path.join(root, "gts.json"),
+               "--n_train", str(n_train), "--n_valid", str(n_valid), "--seed", str(seed)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise SystemExit(f"cli.prepare failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        data = load_captions(os.path.join(root, "captions.json"))
+        sizes = tuple(len(data["splits"][k]) for k in ("train", "valid", "test"))
+        print(f"data: {len(ids)} clips of [{length}, {feat}] float32 written in {t_feats:.1f} s; "
+              f"python -m s2vt_tpu_torch.cli.prepare msvd in {time.perf_counter() - t0:.1f} s: "
+              f"{proc.stdout.strip()} [{card}]", flush=True)
+        if sizes != tuple(clips) or sorted(sum(data["splits"].values(), [])) != sorted(ids):
+            raise SystemExit(f"cli.prepare's splits {sizes} over {len(data['captions'])} clips, "
+                             f"not {clips} over the CSV's {len(ids)}")
+        vecs = glove_file(os.path.join(root, "glove.txt"), data["word2ix"], hid, seed)
+        base = Opt(caption_file=os.path.join(root, "captions.json"),
+                   feats_path=os.path.join(root, "feats"), gts_file=os.path.join(root, "gts.json"),
+                   train_length=length, dim_hidden=hid, dim_embed=hid, feat_dim=feat,
+                   vocab_pad_multiple=vocab, batch_size=MAIN_BATCH, use_pallas=True,
+                   compute_dtype="float32", EPOCHS=epochs, lr=1e-3, seed=seed,
+                   glove_path=os.path.join(root, "glove.txt"))
+        runs = {"a": dict(device_feature_bank="on", prefetch_depth=1, async_checkpoint=False),
+                "b": dict(device_feature_bank="off", prefetch_depth=2, async_checkpoint=True,
+                          save_freq=1, profile=True),
+                "c": dict(device_feature_bank="off", prefetch_depth=1, async_checkpoint=False)}
+        per_train, per_valid, _, _ = s2vt_launches("lstm", 1, length)
+        want = expect(train=(per_train, epochs * n_train // MAIN_BATCH),
+                      valid=(per_valid, epochs * n_valid // MAIN_BATCH))
+        trainers, finals, launches = {}, {}, {}
+        for name, kw in runs.items():
+            opt = base.replace(save_path=os.path.join(root, name, "ckpt"),
+                               log_dir=os.path.join(root, name, "runs"), **kw)
+            dss = {}
+            if name == "c":
+                dss = {f"{m}_ds": VideoDataset(opt.caption_file, opt.feats_path, max_len=length,
+                                               mode=m, seed=seed, backend="numpy")
+                       for m in ("train", "valid")}
+            tr = Trainer(opt, device=device, **dss)
+            backends = {tr.train_ds.effective_backend(), tr.valid_ds.effective_backend()}
+            if name == "b":
+                if backends != {"native"}:
+                    raise SystemExit(f"run (b) streams through {backends}, not the native loader")
+                emb = tr.model.embedding.weight.detach().cpu().numpy()
+                hits = [w for w in vecs if w in tr.train_ds.word2ix]
+                bad = [w for w in hits if not np.array_equal(emb[tr.train_ds.word2ix[w]], vecs[w])]
+                print(f"data (b): GloVe rows at start: {len(hits)} of the file's {len(vecs)} "
+                      f"words are in the vocabulary (V={tr.train_ds.vocab_size}), {len(bad)} "
+                      f"rows differ from the file [{card}]", flush=True)
+                if bad or len(hits) < 5:
+                    raise SystemExit(f"GloVe warm start: rows of {bad[:5]} differ from the file")
+            reset_launches()
+            t0 = time.perf_counter()
+            hist = tr.fit()
+            sync()
+            wall = time.perf_counter() - t0
+            launches[name] = read_launches()
+            routes = {k: read_routes(k) for k in ROUTE_RULES}
+            trainers[name] = tr
+            finals[name] = os.path.join(opt.save_path, opt.start_time + "final")
+            print(f"data ({name}) {kw}: Trainer.fit {epochs} epochs of {n_train} clips in "
+                  f"{wall:.3f} s; bank={tr.use_feature_bank} backend={sorted(backends)} "
+                  f"train_loss={hist['train_loss']} valid_loss={hist['valid_loss']} "
+                  f"clips/s per epoch {[round(c, 1) for c in hist['clips_per_sec']]} "
+                  f"launches={launches[name]} [{card}]", flush=True)
+            if launches[name] != want:
+                raise SystemExit(f"data run ({name}) launched {launches[name]}, not {want}")
+            hold_seq_routes(routes, {k: {MAIN_BATCH: launches[name][k]} for k in ROUTE_RULES},
+                            device, f"data run ({name})", card, hid)
+            if not all(math.isfinite(x) for x in hist["train_loss"] + hist["valid_loss"]):
+                raise SystemExit(f"data run ({name}): losses not finite: {hist}")
+        for name in ("b", "c"):
+            for key in ("train_loss", "valid_loss"):
+                if trainers[name].history[key] != trainers["a"].history[key]:
+                    raise SystemExit(f"data run ({name}) {key} {trainers[name].history[key]} "
+                                     f"!= the bank run's {trainers['a'].history[key]}")
+            got, ref = checkpoint_arrays(finals[name]), checkpoint_arrays(finals["a"])
+            diff = [k for k in ref if not np.array_equal(got.get(k), ref[k])]
+            if got.keys() != ref.keys() or diff:
+                raise SystemExit(f"data run ({name})'s final checkpoint differs from (a)'s: "
+                                 f"{diff[:5]}")
+        saved = sorted(os.listdir(os.path.join(root, "b", "ckpt")))
+        print(f"data: (b) and (c) losses and final params.npz / optimizer.npz equal (a)'s bit "
+              f"for bit; (b)'s checkpoints {saved} [{card}]", flush=True)
+
+        # The trace of (b)'s first train epoch.
+        prof = trace_kernels(os.path.join(root, "b", "runs", "profile"))
+        steps0 = n_train // MAIN_BATCH
+        print(f"data (b) profile of train epoch 0 ({prof['file']}): {prof['kernel_events']} CUDA "
+              f"kernel events; ours {prof['ours']} against the launch counter's {steps0} each; "
+              f"{prof['h2d_copies']} host-to-device copies, {prof['h2d_ms']:.3f} ms, "
+              f"{prof['h2d_under_kernels']:.4f} of it while a kernel ran [{card}]", flush=True)
+        if device.type == "cuda" and prof["kernel_events"] <= 0:
+            raise SystemExit("the profile of run (b) holds no CUDA kernel events")
+
+        # TensorBoard logs.
+        try:
+            import tensorboardX  # noqa: F401
+            have_tbx = True
+        except ImportError:
+            have_tbx = False
+        if have_tbx:
+            want_hist = {k.replace(".", "/") for k in trainers["a"].model.state_dict()}
+            for name in runs:
+                scalars, hists = read_events(os.path.join(root, name, "runs"))
+                if scalars != {"train_loss", "valid_loss", "lr", "clips_per_sec"} or \
+                        hists != want_hist:
+                    raise SystemExit(f"data run ({name})'s TensorBoard tags: {scalars}, {hists}")
+            print(f"data: tensorboardX imports; each run's event file holds the scalars "
+                  f"train_loss, valid_loss, lr, clips_per_sec and {len(want_hist)} weight "
+                  f"histograms [{card}]", flush=True)
+        else:
+            if any(tr.writer is not None for tr in trainers.values()):
+                raise SystemExit("a Trainer opened a writer without tensorboardX")
+            print(f"data: tensorboardX does not import here: the Trainers write no "
+                  f"TensorBoard logs [{card}]", flush=True)
+
+        # Save times: async (the call, then until it has landed) and blocking.
+        tr = trainers["b"]
+        t_async, t_land, t_block = [], [], []
+        for i in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            path = tr.save(f"async{i}")
+            t_async.append((time.perf_counter() - t0) * 1e3)
+            wait_for_saves()
+            t_land.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            block = tr.save(f"block{i}", blocking=True)
+            t_block.append((time.perf_counter() - t0) * 1e3)
+            got, ref = checkpoint_arrays(path), checkpoint_arrays(block)
+            if any(not np.array_equal(got[k], ref[k]) for k in ref):
+                raise SystemExit("an async save differs from a blocking save of the same state")
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        print(f"data: Trainer.save host ms (median of {reps}; {n_params} parameters and two "
+              f"AdamW moments): async call {statistics.median(t_async):.3f}, async until landed "
+              f"{statistics.median(t_land):.3f}, blocking {statistics.median(t_block):.3f}; all "
+              f"{t_async} / {t_land} / {t_block} [{card}]", flush=True)
+
+        # Host ms per streamed batch: the native loader straight into pinned
+        # memory, or into a numpy array and then a pinned copy; numpy loads.
+        def host_ms(ds, alloc):
+            t0, n = time.perf_counter(), 0
+            for b in ds.batches(MAIN_BATCH, epoch=9, feats_alloc=alloc):
+                if device.type == "cuda":
+                    loop._pinned(b.feats)
+                n += 1
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        alloc = tr._pinned_feats if device.type == "cuda" else None
+        ds_np = trainers["c"].train_ds
+        order = (("direct", tr.train_ds, alloc), ("copy", tr.train_ds, None),
+                 ("numpy", ds_np, alloc))
+        host = {k: [] for k, _, _ in order}
+        for turn in (order, order[::-1]):
+            for k, ds, al in turn:
+                host[k].append(host_ms(ds, al))
+        h2d = ""
+        if device.type == "cuda":
+            pinned = torch.empty((MAIN_BATCH, length, feat), pin_memory=True)
+            pageable = torch.empty((MAIN_BATCH, length, feat))
+            h2d = (f"; one batch's copy to the card ({pinned.numel() * 4} B): pinned "
+                   f"{cuda_ms(torch, lambda: pinned.to(device, non_blocking=True), 20):.3f} ms, "
+                   f"pageable {cuda_ms(torch, lambda: pageable.to(device), 20):.3f} ms")
+        print(f"data: host ms per batch of {MAIN_BATCH} over {n_train} clips (two turns): native "
+              f"loader into pinned memory {host['direct']}, native into numpy then a pinned "
+              f"copy {host['copy']}, numpy loads into pinned memory {host['numpy']}{h2d} "
+              f"[{card}]", flush=True)
+        cps = {k: trainers[k].history["clips_per_sec"] for k in runs}
+        print(f"data: train clips/s, epoch 1 (epoch 0): (a) bank {cps['a'][-1]:.1f} "
+              f"({cps['a'][0]:.1f}), (b) native + pinned + depth 2 {cps['b'][-1]:.1f} "
+              f"({cps['b'][0]:.1f}, profiled), (c) numpy depth 1 {cps['c'][-1]:.1f} "
+              f"({cps['c'][0]:.1f}) [{card}]", flush=True)
+        # Train epochs in turns: the bank, then streamed with and without the
+        # host read-ahead thread (loop.read_ahead swapped for the identity).
+        turns = {"bank": [], "read ahead": [], "no read ahead": []}
+        real = loop.read_ahead
+        for i, label in enumerate(("bank", "read ahead", "no read ahead", "no read ahead",
+                                   "read ahead", "bank")):
+            loop.read_ahead = real if label == "read ahead" else (lambda items, depth: items)
+            try:
+                who = trainers["a"] if label == "bank" else tr
+                turns[label].append(round(who.train_epoch(10 + i)[1], 1))
+            finally:
+                loop.read_ahead = real
+        print(f"data: train clips/s in turns (bank, read ahead, none, none, read ahead, bank), "
+              f"(b)'s trainer at depth 2: {turns} [{card}]", flush=True)
+        del trainers, tr
+    print(f"phase 12 (data): {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches["a"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2349,6 +2726,10 @@ def main() -> int:
     # 11. the scoring slice: the metric eval in training, cli.eval, the gate
     phase_score(torch, device, args.seed, H, FEAT, LENGTH, card)
     stamp("phase 11")
+    # 12. the data slice: cli.prepare, streaming through the native loader,
+    # the Trainer's options
+    phase_data(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, card)
+    stamp("phase 12")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
     # at the T of that path (#5: GRU training, where 24 of its 32 phase-8

@@ -7,13 +7,17 @@ and nothing of JAX or of ``s2vt_tpu``:
                    embedding, and the fused dual-LSTM S2VT forward as a
                    hand-written CUDA kernel (``csrc/``) with its plain twin.
 - ``models``     — the S2VT encode-then-decode captioner.
-- ``data``       — the captions.json corpus reader and the fixed-shape batch
-                   pipeline (numpy backend).
-- ``training``   — the model factory and the checkpoint loader
-                   (``opt.json`` + ``params.npz``).
+- ``data``       — corpus preparation (MSVD CSV, MSR-VTT JSON), the
+                   fixed-shape batch pipeline (the C++ reader pool of
+                   ``native/s2vt_loader.cpp``, or numpy), and the GloVe
+                   warm start.
+- ``training``   — the model factory, the Trainer and its checkpoints
+                   (``opt.json`` + ``params.npz``, written in the background
+                   when asked).
 - ``evaluation`` — greedy decoding over a dataset split.
-- ``utils``      — the weight bridge to and from the JAX parameter tree, and
-                   device selection.
+- ``utils``      — the weight bridge to and from the JAX parameter tree,
+                   device selection, the g++ build of ``native/``, and
+                   profiling.
 
 Float32 stays float32 on the card: TF32 is switched off for matmuls and
 cuDNN when the package is imported.

@@ -1,4 +1,4 @@
-"""Fixed-shape host-side batch pipeline (numpy backend).
+"""Fixed-shape host-side batch pipeline.
 
 Counterpart of ``s2vt_tpu/data/dataset.py``. Batches have static shapes —
 [B, L, feat_dim] feats, [B, L] labels/mask — and the final partial batch is
@@ -6,19 +6,45 @@ zero-padded to the batch size with a per-sample ``valid`` weight. Label
 sampling is seeded by (seed, epoch) exactly as in the JAX package, so both
 see the same batches. A consumer that keeps the whole split on the card
 (the trainer's feature bank) reads it once with ``load_all_features`` and
-asks for batches without features (``include_feats=False``). The C++
-``native`` reader and device prefetching are not ported yet.
+asks for batches without features (``include_feats=False``).
+
+Features stream through one of two backends: ``native``, the C++ reader
+pool of ``native/s2vt_loader.cpp`` (``data/native_loader.py``), which reads
+files ahead of the consumer on its own threads, or ``numpy`` (``np.load``
+per file); ``preload`` reads the split once into host memory. A consumer
+may hand ``batches`` the array each batch's features are written into
+(``feats_alloc``), e.g. a view of pinned host memory, so that the batch
+goes to the card without another host copy. ``read_ahead`` assembles the
+next batches on a thread of its own, and ``prefetch_to_device`` keeps
+``depth`` batches' device copies in flight ahead of the consuming step.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
-from typing import Dict, Iterator, List, NamedTuple, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 
 from s2vt_tpu_torch.data.corpus import load_captions, special_token_indices
+
+
+def _npy_native_compatible(path) -> bool:
+    """Header-only probe: True iff the C++ loader can read this file
+    (little-endian float32, C-order, 2-D: s2vt_loader.cpp parse_npy_header).
+    Files that fail (float64 or big-endian saves, say) still load through
+    the numpy path, which converts them."""
+    try:
+        with open(path, "rb") as f:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+            else:
+                shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+    except Exception:
+        return False
+    return not fortran and len(shape) == 2 and dtype == np.dtype("<f4")
 
 
 class Batch(NamedTuple):
@@ -36,7 +62,14 @@ class VideoDataset:
     """Iterable over fixed-shape batches of (features, caption, mask)."""
 
     def __init__(self, captions_file: str, feat_path: str, max_len: int = 80,
-                 mode: str = "train", seed: int = 0):
+                 mode: str = "train", seed: int = 0, preload: bool = False,
+                 backend: str = "auto"):
+        """backend: 'numpy' (np.load per file), 'native' (the C++ reader
+        pool; raises unless every file is a little-endian float32 C-order
+        2-D .npy and the library builds), or 'auto' (native when every file
+        passes that header probe and the library builds, else numpy)."""
+        if backend not in ("auto", "native", "numpy"):
+            raise ValueError(f"backend={backend!r}: expected 'auto', 'native' or 'numpy'")
         data = load_captions(captions_file)
         self.word2ix: Dict[str, int] = data["word2ix"]
         # JSON stringifies int keys; normalize ix2word to int keys.
@@ -54,8 +87,52 @@ class VideoDataset:
         self.max_len = max_len
         self.mode = mode
         self.seed = seed
+        self._cache: Optional[list] = None
+        if preload:
+            self._cache = [np.load(str(p)).astype(np.float32) for p in self.feat_paths]
         probe = np.load(str(self.feat_paths[0]), mmap_mode="r")
         self.feat_len, self.feat_dim = int(probe.shape[0]), int(probe.shape[1])
+
+        self._native = None
+        self._native_ok = False
+        self._backend_pref = backend
+        if backend in ("auto", "native") and not preload:
+            # Probe headers up front: the C++ loader reads only <f4 C-order
+            # 2-D files. With backend='auto' an incompatible file routes the
+            # whole dataset to the numpy path, never a failure at iteration.
+            bad = [str(p) for p in self.feat_paths if not _npy_native_compatible(p)]
+            if bad and backend == "native":
+                raise ValueError(f"backend='native' requires little-endian float32 C-order "
+                                 f"2-D .npy files; incompatible: {bad[:3]}")
+            self._native_ok = not bad
+        # Provisional until the first streaming use: 'native' here means the
+        # header probe passed; the library builds lazily, and a failed build
+        # (backend='auto') demotes to 'numpy' then. effective_backend() gives
+        # the answer after the build.
+        self.backend = "native" if self._native_ok else "numpy"
+
+    def effective_backend(self) -> str:
+        """The backend batches actually stream through: builds the C++
+        library now (``_ensure_native``), so an 'auto' dataset whose build
+        fails reports 'numpy' instead of the provisional 'native'."""
+        self._ensure_native()
+        return self.backend
+
+    def _ensure_native(self):
+        """Start the C++ reader pool on the FIRST streaming use: a consumer
+        that gathers from a device feature bank (include_feats=False) never
+        builds the library or holds the pool."""
+        if self._native is None and self._native_ok:
+            try:
+                from s2vt_tpu_torch.data.native_loader import NativeFeatureLoader
+                self._native = NativeFeatureLoader([str(p) for p in self.feat_paths],
+                                                   self.feat_len, self.feat_dim)
+            except Exception:
+                if self._backend_pref == "native":
+                    raise
+                self._native_ok = False
+                self.backend = "numpy"
+        return self._native
 
     def __len__(self) -> int:
         return len(self.feat_paths)
@@ -65,9 +142,13 @@ class VideoDataset:
         return len(self.word2ix)
 
     def _load_feat(self, i: int) -> np.ndarray:
-        feat = np.load(str(self.feat_paths[i])).astype(np.float32)
+        if self._cache is not None:
+            feat = self._cache[i]
+        else:
+            feat = np.load(str(self.feat_paths[i])).astype(np.float32)
         # 'free'-mode extraction gives ragged lengths: truncate or zero-pad
-        # rows to the probed feat_len.
+        # rows to the probed feat_len (the C++ loader does the same, so both
+        # backends give the same bytes).
         if feat.shape[0] != self.feat_len:
             out = np.zeros((self.feat_len, self.feat_dim), np.float32)
             rows = min(feat.shape[0], self.feat_len)
@@ -98,11 +179,14 @@ class VideoDataset:
 
     def batches(self, batch_size: int, shuffle: Optional[bool] = None,
                 epoch: int = 0, drop_last: bool = False,
-                include_feats: bool = True) -> Iterator[Batch]:
+                include_feats: bool = True,
+                feats_alloc: Optional[Callable[[], np.ndarray]] = None) -> Iterator[Batch]:
         """Yield fixed-shape batches, deterministic given (seed, epoch).
         ``include_feats=False`` reads no features (Batch.feats is None), for
         consumers that gather from a feature bank by ``Batch.rows``; label
-        sampling is the same either way."""
+        sampling is the same either way. ``feats_alloc()``, when given,
+        returns the writeable C-order float32 [B, feat_len, feat_dim] array
+        each batch's features are written into (a fresh one per batch)."""
         if shuffle is None:
             shuffle = self.mode == "train"
         n = len(self.feat_paths)
@@ -110,28 +194,123 @@ class VideoDataset:
         order = rng.permutation(n) if shuffle else np.arange(n)
         if drop_last:
             order = order[:(n // batch_size) * batch_size]
+        B = batch_size
+        feat_shape = (B, self.feat_len, self.feat_dim)
 
-        for start in range(0, len(order), batch_size):
-            idx = order[start:start + batch_size]
-            B = batch_size
-            labels = np.zeros((B, self.max_len), np.int32)
-            mask = np.zeros((B, self.max_len), np.float32)
-            valid = np.zeros((B,), np.float32)
-            rows = np.zeros((B,), np.int32)
-            ids = [""] * B
-            feats = (np.zeros((B, self.feat_len, self.feat_dim), np.float32)
-                     if include_feats else None)
-            for row, i in enumerate(idx):
-                vid = self.feat_paths[i].stem
-                caps = self.captions[vid]
-                cap = caps[rng.integers(len(caps))]
-                labels[row], mask[row] = self._encode_caption(cap)
-                if include_feats:
-                    feats[row] = self._load_feat(i)
-                valid[row] = 1.0
-                rows[row] = i
-                ids[row] = vid
-            yield Batch(feats, labels, mask, valid, tuple(ids), rows)
+        native_iter = None
+        if include_feats and len(order) and self._ensure_native() is not None:
+            native_iter = self._native.iter_batches(order, B, alloc=feats_alloc)
+
+        try:
+            for start in range(0, len(order), B):
+                idx = order[start:start + B]
+                labels = np.zeros((B, self.max_len), np.int32)
+                mask = np.zeros((B, self.max_len), np.float32)
+                valid = np.zeros((B,), np.float32)
+                rows = np.zeros((B,), np.int32)
+                ids = [""] * B
+                if native_iter is not None:
+                    feats = next(native_iter)   # read ahead on the pool's threads
+                elif not include_feats:
+                    feats = None
+                elif feats_alloc is None:
+                    feats = np.zeros(feat_shape, np.float32)
+                else:
+                    feats = feats_alloc()
+                    feats[len(idx):] = 0.0
+                for row, i in enumerate(idx):
+                    vid = self.feat_paths[i].stem
+                    caps = self.captions[vid]
+                    cap = caps[rng.integers(len(caps))]
+                    labels[row], mask[row] = self._encode_caption(cap)
+                    if include_feats and native_iter is None:
+                        feats[row] = self._load_feat(i)
+                    valid[row] = 1.0
+                    rows[row] = i
+                    ids[row] = vid
+                yield Batch(feats, labels, mask, valid, tuple(ids), rows)
+        finally:
+            # Abandoned mid-epoch (a consumer's break or exception) or done:
+            # close now. The loader's epoch generations keep a later epoch
+            # safe either way.
+            if native_iter is not None:
+                native_iter.close()
+
+    def steps_per_epoch(self, batch_size: int, drop_last: bool = False) -> int:
+        n = len(self.feat_paths)
+        return n // batch_size if drop_last else -(-n // batch_size)
+
+
+def read_ahead(items: Iterator, depth: int) -> Iterator:
+    """Yield ``items``, produced on a thread of its own up to ``depth`` items
+    ahead of the consumer (``depth`` < 1: in the caller's thread, none
+    ahead). Host work of the next batches (file reads, copies into pinned
+    memory; the C++ loader and numpy release the GIL) then runs while the
+    caller's thread launches the current step. An exception in the thread
+    is raised in the consumer; a consumer that stops early stops the thread,
+    and ``items`` is closed on it."""
+    if depth < 1:
+        yield from items
+        return
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(entry) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(entry, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def run():
+        try:
+            for item in items:
+                if not put((item, None)):
+                    return
+            put((end, None))
+        except Exception as e:         # raised again in the consumer
+            put((end, e))
+        finally:
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()
+
+    thread = threading.Thread(target=run, name="read_ahead", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, error = q.get()
+            if item is end:
+                if error is not None:
+                    raise error
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join()
+
+
+def prefetch_to_device(batches: Iterator[Batch], put_fn, depth: int = 2):
+    """Device-side input buffering: ``put_fn(batch)`` starts a batch's copy
+    to the device (asynchronously, e.g. on a copy stream of its own), and
+    ``depth`` such copies are kept in flight, so batch t+1's transfer runs
+    under batch t's step instead of before it (``depth=1``: none ahead).
+    Yields ``(host_batch, put_fn(host_batch))``; the host batch keeps ids
+    and valid for bookkeeping without a device-to-host read."""
+    from collections import deque
+    q = deque()
+    for batch in batches:
+        q.append((batch, put_fn(batch)))
+        if len(q) >= depth:
+            yield q.popleft()
+    while q:
+        yield q.popleft()
 
 
 def make_synthetic_corpus(root: str, n_videos: int = 6, vocab_extra: int = 30,

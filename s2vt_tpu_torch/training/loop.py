@@ -9,37 +9,60 @@ checkpoints), on one device:
    its end.
  - The whole feature set can live on the device as one tensor (the feature
    bank); batches are then gathered there by row index, and only labels and
-   row indices cross from the host per step.
+   row indices cross from the host per step. With ``Opt.feature_bank_cache``
+   the uploaded banks stay in a process-level cache, keyed by the feature
+   files' stats, for the next Trainer over the same data.
+ - Otherwise features stream from the dataset's backend (the C++ reader
+   pool where it can run), assembled on a host thread of their own. On the
+   card each batch lands in pinned host memory and is copied on a stream of
+   the Trainer's own, ``prefetch_depth`` - 1 batches ahead of the step that
+   consumes it, which waits on the copy's event; on the CPU nothing is
+   pinned and no stream exists.
  - Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch,
    step), the role of the JAX package's ``fold_in`` keys.
  - With ``Opt.metric_eval_freq`` > 0, every that many epochs the valid
    split is greedy-decoded (from the feature bank when there is one) and
    scored against ``Opt.gts_file`` (BLEU, METEOR, ROUGE-L, CIDEr), into
    ``history["metrics"]``.
+ - ``Opt.glove_path`` warm-starts the embedding from GloVe
+   (``data/glove.py``); ``Opt.profile`` traces epoch 0's train epoch into
+   ``log_dir/profile`` (``utils/profiling.py``); a tensorboardX writer (where
+   it imports) logs the reference's scalars, the metric eval's and weight
+   histograms every ``histogram_freq`` epochs into ``log_dir``.
+ - With ``Opt.async_checkpoint`` the periodic and best checkpoints are
+   written on a thread of their own from a device snapshot taken at the
+   call (``training/checkpoint.py``); 'final' waits for them all.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import signal
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from s2vt_tpu_torch.config import Opt, save_opt
-from s2vt_tpu_torch.data.dataset import Batch, VideoDataset
+from s2vt_tpu_torch.data.dataset import (Batch, VideoDataset, prefetch_to_device,
+                                         read_ahead)
 from s2vt_tpu_torch.models.attention import AttBaseline
 from s2vt_tpu_torch.models.s2vt import S2VT
 from s2vt_tpu_torch.ops.losses import _token_nll
 from s2vt_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau
 from s2vt_tpu_torch.training.checkpoint import load_training_state, save_training_state
 from s2vt_tpu_torch.utils.device import resolve_device
-from s2vt_tpu_torch.utils.weights import params_from_jax, params_to_jax
+from s2vt_tpu_torch.utils.weights import params_from_jax, unflatten_params
+
+# Process-level device feature banks (Opt.feature_bank_cache): (feats dir,
+# content ident, clips, feat_len, feat_dim, split, stored dtype, device) ->
+# (tensor, the per-file (path, mtime_ns, size) stats that evict stale entries).
+_BANK_CACHE: Dict[tuple, tuple] = {}
 
 
 def batch_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
@@ -93,15 +116,34 @@ def build_model(opt: Opt, vocab_size: int, valid_vocab: Optional[int] = None) ->
 def _refuse_unported(opt: Opt) -> None:
     """Options of the JAX Trainer that the port does not have yet raise here,
     naming their ROADMAP.md item, instead of being skipped."""
-    unported = [
-        (bool(opt.glove_path), "glove_path (GloVe warm start)", "queue 1, item 10"),
-        (opt.profile, "profile (trace of the first epoch)", "queue 1, item 10"),
-        (tuple(opt.mesh_shape) != (1, 1), f"mesh_shape={tuple(opt.mesh_shape)}",
-         "queue 1, item 6: parallel"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"Trainer: {what} is not ported yet (ROADMAP.md {item})")
+    if tuple(opt.mesh_shape) != (1, 1):
+        raise NotImplementedError(f"Trainer: mesh_shape={tuple(opt.mesh_shape)} is not ported "
+                                  f"yet (ROADMAP.md queue 1, item 6: parallel)")
+
+
+def _pinned(arr: np.ndarray) -> torch.Tensor:
+    """A pinned host tensor holding ``arr``: the pinned tensor ``arr`` views
+    (``Trainer._pinned_feats``), else a pinned copy."""
+    base = arr.base
+    if isinstance(base, torch.Tensor) and base.shape == arr.shape and base.is_pinned():
+        return base
+    return torch.from_numpy(arr).pin_memory()
+
+
+def _evict_stale_banks() -> None:
+    """Drop every cached bank whose feature files changed or went since it
+    was read. Entries that still match stay: two corpora may share one
+    features directory."""
+    for key in list(_BANK_CACHE):
+        for path, mtime_ns, size in _BANK_CACHE[key][1]:
+            try:
+                st = os.stat(path)
+                fresh = st.st_mtime_ns == mtime_ns and st.st_size == size
+            except OSError:
+                fresh = False
+            if not fresh:
+                del _BANK_CACHE[key]
+                break
 
 
 def _dropout_seed(seed: int, epoch: int, step: int) -> int:
@@ -114,7 +156,10 @@ class Trainer:
 
     def __init__(self, opt: Opt, model: Optional[Model] = None,
                  train_ds: Optional[VideoDataset] = None,
-                 valid_ds: Optional[VideoDataset] = None, device=None):
+                 valid_ds: Optional[VideoDataset] = None, device=None, writer: Any = "auto"):
+        """``writer``: "auto" opens a tensorboardX ``SummaryWriter`` on
+        ``opt.log_dir`` where tensorboardX imports (else none), None writes
+        no logs, anything else is used as the writer."""
         _refuse_unported(opt)
         self.device = resolve_device(device)
         self.train_ds = train_ds or VideoDataset(
@@ -140,6 +185,9 @@ class Trainer:
         if model is None:
             model = build_model(opt, self.vocab_size, valid_vocab=self.train_ds.vocab_size)
             model.reset_parameters(torch.Generator().manual_seed(opt.seed))
+        if opt.glove_path:
+            from s2vt_tpu_torch.data.glove import warm_start_embedding
+            warm_start_embedding(model, opt.glove_path, self.train_ds.word2ix, seed=opt.seed)
         self.model = model.to(self.device)
         # AdamW with these arguments is optax.adamw; with weight_decay 0 it is
         # Adam, the reference's optimizer (train.py:89-93). Torch's default
@@ -165,8 +213,11 @@ class Trainer:
             fb == "auto" and stored <= opt.feature_bank_max_bytes)
         self._bank: Dict[str, torch.Tensor] = {}
         if self.use_feature_bank:
-            self._bank = {"train": self._upload(self.train_ds),
-                          "valid": self._upload(self.valid_ds)}
+            self._bank = {"train": self._bank_tensor(self.train_ds, "train"),
+                          "valid": self._bank_tensor(self.valid_ds, "valid")}
+        # Batches are copied to the card on a stream of their own.
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
 
         self.plateau = ReduceLROnPlateau(opt.lr, patience=opt.learning_rate_patience)
         self.early = EarlyStopping(patience=opt.early_stopping_patience,
@@ -177,6 +228,7 @@ class Trainer:
         self._stop_requested = False
         self._metric_decoder = None
         self.metric_eval_ms: list = []   # per metric eval: {"decode": ms, "score": ms}
+        self.writer = self._make_writer() if writer == "auto" else writer
 
     # ------------------------------------------------------------------
 
@@ -184,17 +236,98 @@ class Trainer:
         """One split's features as a device tensor [N, L, feat_dim]."""
         return torch.from_numpy(ds.load_all_features()).to(self.device, self._feat_dtype)
 
+    def _bank_tensor(self, ds: VideoDataset, split: str) -> torch.Tensor:
+        """One split's feature bank: uploaded, or with ``opt.feature_bank_cache``
+        taken from the process-level cache when the same files (ordered paths,
+        mtimes and sizes), counts, shape, split, stored dtype and device were
+        uploaded before. Off by default: a cached bank outlives its Trainer
+        and holds its device memory until the process ends."""
+        if not self.opt.feature_bank_cache:
+            return self._upload(ds)
+        stats = []
+        for p in ds.feat_paths:
+            st = p.stat()
+            stats.append((str(p), st.st_mtime_ns, st.st_size))
+        stats = tuple(stats)
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (str(ds.feat_paths[0].parent), hashlib.sha1(repr(stats).encode()).hexdigest(),
+               len(ds), ds.feat_len, ds.feat_dim, split, str(self._feat_dtype), str(dev))
+        entry = _BANK_CACHE.get(key)
+        if entry is not None:
+            return entry[0]
+        _evict_stale_banks()
+        bank = self._upload(ds)
+        _BANK_CACHE[key] = (bank, stats)
+        return bank
+
+    def _make_writer(self):
+        try:
+            from tensorboardX import SummaryWriter
+            return SummaryWriter(self.opt.log_dir)
+        except Exception:
+            return None
+
+    def _pinned_feats(self) -> np.ndarray:
+        """A [B, L, feat_dim] float32 array over pinned host memory, for the
+        dataset to write a streamed batch into. PyTorch's caching host
+        allocator hands the block out again only after the copies that read
+        it have finished."""
+        shape = (self.opt.batch_size, self.train_ds.feat_len, self.train_ds.feat_dim)
+        return torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
+
+    def _batches(self, split: str, epoch: int):
+        """The split's host batches, each followed by its device copy
+        (``_send``) ``prefetch_depth`` - 1 batches ahead of its step;
+        streamed batches are read on a thread of their own as many ahead."""
+        ds = self.train_ds if split == "train" else self.valid_ds
+        streamed = not self.use_feature_bank
+        alloc = self._pinned_feats if streamed and self._copy_stream is not None else None
+        depth = self.opt.prefetch_depth
+        batches = ds.batches(self.opt.batch_size, shuffle=None if split == "train" else False,
+                             epoch=epoch, include_feats=streamed, feats_alloc=alloc)
+        if streamed:
+            batches = read_ahead(batches, depth - 1)
+        return prefetch_to_device(batches, self._send, depth=depth)
+
+    def _send(self, batch: Batch):
+        """Start a host batch's copy to the device: labels, mask, valid and
+        the bank rows or the streamed features. On the card the copies run
+        from pinned memory on the Trainer's copy stream; returns the device
+        tensors and the event after them (None on the CPU)."""
+        dev, stream = self.device, self._copy_stream
+        x = batch.rows if self.use_feature_bank else batch.feats
+        x_dtype = torch.long if self.use_feature_bank else self._feat_dtype
+        if stream is None:
+            return (torch.from_numpy(batch.labels).to(dev, torch.long),
+                    torch.from_numpy(batch.mask).to(dev), torch.from_numpy(batch.valid).to(dev),
+                    torch.from_numpy(x).to(dev, x_dtype)), None
+        with torch.cuda.stream(stream):
+            sent = (_pinned(batch.labels).to(dev, non_blocking=True).long(),
+                    _pinned(batch.mask).to(dev, non_blocking=True),
+                    _pinned(batch.valid).to(dev, non_blocking=True),
+                    _pinned(x).to(dev, non_blocking=True).to(x_dtype))
+            done = stream.record_event()
+        return sent, done
+
+    def _take(self, sent, split: str):
+        """(feats, labels, mask, valid) of a batch ``_send`` started, ready
+        on the current stream: it waits for the copy, and the tensors are
+        marked as used there (``record_stream``), so their memory is not
+        handed out again before the step's kernels have read it."""
+        (labels, mask, valid, x), done = sent
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in (labels, mask, valid, x):
+                t.record_stream(stream)
+        feats = self._bank[split][x] if self.use_feature_bank else x
+        return feats, labels, mask, valid
+
     def _put(self, batch: Batch, split: str):
         """(feats, labels, mask, valid) of a host batch, on the device."""
-        dev = self.device
-        labels = torch.from_numpy(batch.labels).to(dev, torch.long)
-        mask = torch.from_numpy(batch.mask).to(dev)
-        valid = torch.from_numpy(batch.valid).to(dev)
-        if self.use_feature_bank:
-            feats = self._bank[split][torch.from_numpy(batch.rows).to(dev, torch.long)]
-        else:
-            feats = torch.from_numpy(batch.feats).to(dev, self._feat_dtype)
-        return feats, labels, mask, valid
+        return self._take(self._send(batch), split)
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -216,12 +349,10 @@ class Trainer:
         losses = []
         clips = 0
         t0 = time.time()
-        batches = self.train_ds.batches(self.opt.batch_size, epoch=epoch,
-                                        include_feats=not self.use_feature_bank)
-        for i, batch in enumerate(batches):
+        for i, (batch, sent) in enumerate(self._batches("train", epoch)):
             gen = torch.Generator(device=self.device).manual_seed(
                 _dropout_seed(self.opt.seed, epoch, i))
-            losses.append(self.train_step(*self._put(batch, "train"), generator=gen))
+            losses.append(self.train_step(*self._take(sent, "train"), generator=gen))
             clips += int(batch.valid.sum())
         mean_loss = torch.stack(losses).mean().item()   # the epoch's one sync
         return mean_loss, clips / max(time.time() - t0, 1e-9)
@@ -231,10 +362,8 @@ class Trainer:
         """Mean validation loss, teacher-forced with no gradient recorded (the
         attention baseline's decoder loop then runs its kernel)."""
         losses, weights = [], []
-        batches = self.valid_ds.batches(self.opt.batch_size, shuffle=False, epoch=epoch,
-                                        include_feats=not self.use_feature_bank)
-        for batch in batches:
-            feats, labels, mask, valid = self._put(batch, "valid")
+        for batch, sent in self._batches("valid", epoch):
+            feats, labels, mask, valid = self._take(sent, "valid")
             logits = self.model(feats, labels[:, :-1], mode="train", deterministic=True)
             losses.append(batch_loss(logits, labels, mask, valid,
                                      masked=self.opt.masked_loss))
@@ -271,18 +400,25 @@ class Trainer:
             pass
         try:
             self._fit_epochs(epochs, on_epoch_end)
-            self.save("final")
+            self.save("final", blocking=True)   # waits for the saves in flight too
         finally:
             if registered:
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None else signal.SIG_DFL)
+        if self.writer is not None:
+            self.writer.flush()
         return self.history
 
     def _fit_epochs(self, epochs: int, on_epoch_end: Optional[Callable]) -> None:
         opt = self.opt
         try:
             for epoch in range(self.epochs_done, epochs):
-                train_loss, cps = self.train_epoch(epoch)
+                if opt.profile and epoch == 0:
+                    from s2vt_tpu_torch.utils.profiling import trace
+                    with trace(os.path.join(opt.log_dir, "profile")):
+                        train_loss, cps = self.train_epoch(epoch)
+                else:
+                    train_loss, cps = self.train_epoch(epoch)
                 valid_loss = self.valid_epoch(epoch)
                 lr = self.plateau.step(valid_loss)
                 self._set_lr(lr)
@@ -290,6 +426,7 @@ class Trainer:
                 self.history["valid_loss"].append(valid_loss)
                 self.history["lr"].append(lr)
                 self.history["clips_per_sec"].append(cps)
+                self._log_epoch(epoch, train_loss, valid_loss, lr)
                 self.epochs_done = epoch + 1
                 if opt.metric_eval_freq > 0 and (epoch + 1) % opt.metric_eval_freq == 0:
                     self._metric_eval(epoch)
@@ -304,7 +441,24 @@ class Trainer:
         except KeyboardInterrupt:
             # The reference saves and exits on Ctrl-C (train.py:170-175): fall
             # through to the 'final' checkpoint.
-            pass
+            if self.writer is not None:
+                self.writer.flush()
+
+    def _log_epoch(self, epoch: int, train_loss: float, valid_loss: float, lr: float) -> None:
+        """The reference's scalar tags (train.py:131,149-150) and clips/s;
+        every ``histogram_freq`` epochs a histogram per weight, named by its
+        JAX parameter path (``vid_rnn/l0/w_ih``)."""
+        if self.writer is None:
+            return
+        self.writer.add_scalar("train_loss", train_loss, global_step=epoch)
+        self.writer.add_scalar("valid_loss", valid_loss, global_step=epoch)
+        self.writer.add_scalar("lr", lr, global_step=epoch)
+        self.writer.add_scalar("clips_per_sec", self.history["clips_per_sec"][-1],
+                               global_step=epoch)
+        if epoch % self.opt.histogram_freq == 0:
+            for key, val in sorted(self.model.state_dict().items()):
+                self.writer.add_histogram(key.replace(".", "/"),
+                                          val.detach().cpu().numpy(), epoch)
 
     def _metric_eval(self, epoch: int) -> Optional[dict]:
         """Greedy-decode the valid split at ``eval_batch_size`` and score it
@@ -330,30 +484,50 @@ class Trainer:
         self.metric_eval_ms.append({"decode": (t1 - t0) * 1e3,
                                     "score": (time.perf_counter() - t1) * 1e3})
         self.history.setdefault("metrics", []).append({"epoch": epoch, **scores})
+        if self.writer is not None:
+            for name, value in scores.items():
+                self.writer.add_scalar(f"valid/{name}", value, global_step=epoch)
         return scores
 
     # ------------------------------------------------------------------
 
-    def _optim_tree(self) -> dict:
-        """AdamW's moments as parameter trees (the params.npz layout), and its step."""
-        moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    def _state_trees(self, snapshot: bool) -> tuple:
+        """(params, optim): the parameters, and AdamW's moments with its step,
+        as trees in the params.npz layout whose leaves are the device tensors,
+        or with ``snapshot`` clones of them (AdamW updates its tensors in
+        place, so a write that runs later needs its own copy)."""
+        take = (lambda t: t.detach().clone()) if snapshot else (lambda t: t.detach())
+
+        def tree(named):
+            return unflatten_params({k.replace(".", "//"): take(v) for k, v in named})
+
+        moments = {"exp_avg": [], "exp_avg_sq": []}
         step = 0.0
         for name, p in self.model.named_parameters():
             st = self.optimizer.state.get(p, {})
-            for m, tensors in moments.items():
-                tensors[name] = st.get(m, torch.zeros_like(p))
+            for m, named in moments.items():
+                named.append((name, st[m] if m in st else torch.zeros_like(p)))
             step = float(st.get("step", step))
-        return {**{m: params_to_jax(t) for m, t in moments.items()},
-                "step": np.asarray(step, np.float32)}
+        optim = {**{m: tree(named) for m, named in moments.items()},
+                 "step": np.asarray(step, np.float32)}
+        return tree(self.model.state_dict().items()), optim
 
-    def save(self, tag: str) -> str:
-        """Write a blocking checkpoint ``{save_path}/{start_time}{tag}``: the
-        best ('stop'), periodic ('{epoch}') and 'final' tags of the loop."""
+    def save(self, tag: str, blocking: Optional[bool] = None) -> str:
+        """Write the checkpoint ``{save_path}/{start_time}{tag}``: the best
+        ('stop'), periodic ('{epoch}') and 'final' tags of the loop. Blocking
+        unless ``opt.async_checkpoint`` (or ``blocking=False``): the write
+        then runs on a thread of its own from a snapshot of the state taken
+        now, and this returns at once. Either way it first waits for the
+        saves in flight and raises if one of them failed."""
+        if blocking is None:
+            blocking = not self.opt.async_checkpoint
         path = os.path.join(self.opt.save_path, self.opt.start_time + tag)
         state = {"lr": self.optimizer.param_groups[0]["lr"], "epochs_done": self.epochs_done,
                  "plateau": self.plateau.state_dict(), "early": self.early.state_dict()}
-        return save_training_state(path, params_to_jax(self.model), self._optim_tree(), state,
-                                   self.opt.to_json())
+        with torch.no_grad():
+            params, optim = self._state_trees(snapshot=not blocking)
+        return save_training_state(path, params, optim, state, self.opt.to_json(),
+                                   blocking=blocking)
 
     def restore(self, path: str) -> None:
         """Parameters, AdamW state, learning rate, callbacks and epoch count

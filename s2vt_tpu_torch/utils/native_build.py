@@ -2,7 +2,8 @@
 into shared libraries for ``ctypes``.
 
 ``build_native(name)`` compiles ``native/<name>.cpp`` with ``g++ -O3
--std=c++17 -shared -fPIC`` into ``build/native/lib<name>-<hash>.so`` at the
+-std=c++17 -shared -fPIC -pthread`` (the feature loader runs a
+``std::thread`` pool) into ``build/native/lib<name>-<hash>.so`` at the
 root of the checkout, on first use. The hash covers the source and the
 flags, so an edited source builds anew and a finished library is reused by
 later processes. The compiler writes a temporary file of its own, which is
@@ -21,7 +22,7 @@ import subprocess
 
 NATIVE_DIR = pathlib.Path(__file__).resolve().parents[1] / "native"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "native"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def library_path(name: str) -> pathlib.Path:

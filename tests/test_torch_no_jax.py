@@ -1,5 +1,6 @@
-"""The port stands alone: every module of s2vt_tpu_torch imports with JAX and
-nltk blocked, and none of them loads the JAX package s2vt_tpu."""
+"""The port stands alone: every module of s2vt_tpu_torch imports with JAX,
+nltk and pandas blocked (the card's machine has neither of the last two),
+and none of them loads the JAX package s2vt_tpu."""
 
 import os
 import subprocess
@@ -11,6 +12,7 @@ _PROBE = """
 import importlib, pkgutil, sys
 sys.modules['jax'] = None
 sys.modules['nltk'] = None
+sys.modules['pandas'] = None
 import s2vt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(s2vt_tpu_torch.__path__, 's2vt_tpu_torch.')]
 for name in names:
@@ -45,6 +47,9 @@ REQUIRED = {
     "s2vt_tpu_torch.metrics.meteor", "s2vt_tpu_torch.evaluation",
     "s2vt_tpu_torch.evaluation.scorer", "s2vt_tpu_torch.evaluation.coco_eval",
     "s2vt_tpu_torch.cli.eval", "s2vt_tpu_torch.tools.learning_gate",
+    "s2vt_tpu_torch.data.corpus", "s2vt_tpu_torch.data.native_loader",
+    "s2vt_tpu_torch.data.glove", "s2vt_tpu_torch.cli.prepare",
+    "s2vt_tpu_torch.utils.profiling",
 }
 
 

@@ -50,8 +50,8 @@ def small_opt(corpus, tmp_path, **kw):
     return Opt(**base)
 
 
-def port_trainer(corpus, tmp_path, **kw) -> Trainer:
-    return Trainer(small_opt(corpus, tmp_path, **kw), device="cpu")
+def port_trainer(corpus, tmp_path, writer="auto", **kw) -> Trainer:
+    return Trainer(small_opt(corpus, tmp_path, **kw), device="cpu", writer=writer)
 
 
 @pytest.fixture(scope="module")
@@ -189,7 +189,7 @@ def test_resume_continues_an_uninterrupted_run(corpus, tmp_path):
     full = port_trainer(corpus, tmp_path / "full", use_pallas=True).fit(epochs=4)
     first = port_trainer(corpus, tmp_path / "part", use_pallas=True)
     first.fit(epochs=2)
-    path = first.save("mid")
+    path = first.save("mid", blocking=True)   # Opt.async_checkpoint is on by default
     assert sorted(os.listdir(path)) == ["opt.json", "optimizer.npz", "params.npz",
                                        "trainer.json"]
     second = port_trainer(corpus, tmp_path / "resumed", use_pallas=True, resume_path=path)
@@ -233,11 +233,205 @@ def test_sigterm_stops_after_the_epoch_and_resumes(corpus, tmp_path):
     np.testing.assert_allclose(rest["train_loss"], full["train_loss"][2:], rtol=1e-6)
 
 
-@pytest.mark.parametrize("field, value", [
-    ("glove_path", "glove.txt"), ("profile", True), ("mesh_shape", (2, 1))])
+@pytest.mark.parametrize("field, value", [("mesh_shape", (2, 1))])
 def test_unported_options_raise(corpus, tmp_path, field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         port_trainer(corpus, tmp_path, **{field: value})
+
+
+def _events(log_dir):
+    """(scalars {tag: [(step, value)]}, histogram tags) of a TensorBoard log."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    acc = EventAccumulator(str(log_dir), size_guidance={"scalars": 0, "histograms": 0})
+    acc.Reload()
+    tags = acc.Tags()
+    scalars = {t: [(e.step, e.value) for e in acc.Scalars(t)] for t in tags["scalars"]}
+    return scalars, set(tags["histograms"])
+
+
+def test_writer_logs_the_jax_trainers_tags(jax_training, corpus, tmp_path):
+    """The port's TensorBoard log against the JAX Trainer's on the same corpus
+    and initial weights: the same scalar tags (train_loss, valid_loss, lr,
+    clips_per_sec, valid/<metric>) at the same steps, losses within RTOL and
+    lr equal, and the same histogram names (every epoch here)."""
+    jax, _, jtraining, _, jconfig, jparallel = jax_training
+    kw = dict(histogram_freq=1, metric_eval_freq=2, async_checkpoint=False, dim_hidden=16,
+              dim_embed=16)
+    jopt = jconfig.Opt(**json.loads(small_opt(corpus, tmp_path / "jax", **kw).to_json()))
+    jtr = jtraining.Trainer(jopt.replace(mesh_shape=(1, 1)), mesh=jparallel.make_mesh((1, 1)))
+    init = jax.device_get(jtr.params)
+    jtr.fit(epochs=2)
+    tr = port_trainer(corpus, tmp_path / "port", **kw)
+    assert tr.writer is not None
+    tr.model.load_state_dict(params_from_jax(init))
+    tr.fit(epochs=2)
+    got, got_hist = _events(tmp_path / "port" / "runs")
+    want, want_hist = _events(tmp_path / "jax" / "runs")
+    assert set(got) == set(want) and {"train_loss", "valid_loss", "lr", "clips_per_sec",
+                                      "valid/CIDEr", "valid/Bleu_4"} <= set(got)
+    assert got_hist == want_hist and "vid_rnn/l0/w_ih" in got_hist and len(got_hist) > 10
+    for tag in got:
+        assert [s for s, _ in got[tag]] == [s for s, _ in want[tag]], tag
+    for tag in ("train_loss", "valid_loss", "lr"):
+        np.testing.assert_allclose([v for _, v in got[tag]], [v for _, v in want[tag]],
+                                   rtol=RTOL, err_msg=tag)
+    assert [s for s, _ in got["valid/CIDEr"]] == [1]
+    silent = port_trainer(corpus, tmp_path / "silent", writer=None)
+    silent.fit(epochs=1)
+    assert silent.writer is None and not os.path.exists(tmp_path / "silent" / "runs")
+
+
+def test_profile_traces_the_first_train_epoch(corpus, tmp_path):
+    """Opt.profile writes a Chrome trace of epoch 0's train epoch into
+    log_dir/profile, with the train step's operators in it."""
+    from s2vt_tpu_torch.utils import profiling
+    tr = port_trainer(corpus, tmp_path, profile=True, writer=None)
+    tr.fit(epochs=2)
+    traces = list((tmp_path / "runs" / "profile").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    assert {"aten::mm", "Optimizer.step#AdamW.step"} & names
+    with profiling.trace(str(tmp_path / "mine")):
+        with profiling.annotate("my_region"):
+            torch.ones(3).sum()
+    (mine,) = (tmp_path / "mine").glob("*.pt.trace.json")
+    assert "my_region" in mine.read_text()
+    meter = profiling.ThroughputMeter()
+    assert meter.n_chips == 1
+    meter.update(10)
+    assert meter.summary()["clips"] == 10.0 and meter.clips_per_sec > 0
+    with profiling.Timer() as t:
+        pass
+    assert t.seconds >= 0
+
+
+def _gate_writes(monkeypatch, gate=None, error=None):
+    """Make every params.npz write wait for ``gate`` or raise ``error``."""
+    from s2vt_tpu_torch.training import checkpoint
+    real = checkpoint.save_params_npz
+
+    def gated(path, tree):
+        if error is not None:
+            raise error
+        assert gate.wait(60)
+        real(path, tree)
+
+    monkeypatch.setattr(checkpoint, "save_params_npz", gated)
+
+
+def _checkpoint_files(path):
+    out = {}
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".npz"):
+            with np.load(os.path.join(path, name)) as z:
+                out[name] = {k: z[k] for k in z.files}
+        else:
+            with open(os.path.join(path, name), encoding="utf-8") as f:
+                out[name] = f.read()
+    return out
+
+
+def test_async_save_snapshots_the_state_and_lands_later(corpus, tmp_path, monkeypatch):
+    """An async save returns before its files exist; the directory it writes
+    later equals a blocking save of the same moment, although the Trainer
+    trains on meanwhile (AdamW updates in place); restore waits for it."""
+    import threading
+    from s2vt_tpu_torch.training import wait_for_saves
+    tr = port_trainer(corpus, tmp_path, async_checkpoint=True, writer=None)
+    tr.fit(epochs=1)
+    want = tr.save("blocking", blocking=True)
+    gate = threading.Event()
+    _gate_writes(monkeypatch, gate)
+    path = tr.save("async")
+    assert not os.path.exists(path)
+    tr.train_epoch(7)                     # changes params and moments in place
+    gate.set()
+    wait_for_saves()
+    assert not [n for n in os.listdir(tmp_path / "ckpt") if ".tmp" in n]
+    got_files, want_files = _checkpoint_files(path), _checkpoint_files(want)
+    assert got_files.keys() == want_files.keys() == {"opt.json", "optimizer.npz", "params.npz",
+                                                     "trainer.json"}
+    for name, want_val in want_files.items():
+        if name.endswith(".npz"):
+            assert got_files[name].keys() == want_val.keys()
+            for k, v in want_val.items():
+                np.testing.assert_array_equal(got_files[name][k], v, err_msg=k)
+        else:
+            assert got_files[name] == want_val, name
+    fresh = port_trainer(corpus, tmp_path / "fresh", writer=None)
+    gate.clear()
+    again = tr.save("again")
+    threading.Timer(0.5, gate.set).start()
+    fresh.restore(again)                  # waits for the write first
+    assert fresh.epochs_done == 1
+
+
+def test_final_save_waits_for_async_saves(corpus, tmp_path, monkeypatch):
+    """fit's 'final' save blocks until every periodic save has landed."""
+    import threading
+    gate = threading.Event()
+    _gate_writes(monkeypatch, gate)
+    threading.Timer(1.0, gate.set).start()
+    tr = port_trainer(corpus, tmp_path, async_checkpoint=True, save_freq=1, writer=None)
+    tr.fit(epochs=2)
+    stamp = tr.opt.start_time
+    names = set(os.listdir(tmp_path / "ckpt"))
+    assert {stamp + t for t in ("0", "1", "stop", "final")} <= names
+    assert not [n for n in names if ".tmp" in n]
+    for t in ("0", "1", "final"):
+        assert len(os.listdir(tmp_path / "ckpt" / (stamp + t))) == 4
+
+
+@pytest.mark.parametrize("where", ["next_save", "fit_end"])
+def test_async_write_errors_surface(corpus, tmp_path, monkeypatch, where):
+    """A failed background write raises at the next save, or at fit's end."""
+    tr = port_trainer(corpus, tmp_path, async_checkpoint=True, save_freq=1, writer=None)
+    _gate_writes(monkeypatch, error=OSError("disk full"))
+    if where == "next_save":
+        tr.save("a")
+        with pytest.raises(RuntimeError, match="async checkpoint write.*disk full"):
+            tr.save("b", blocking=True)
+    else:
+        with pytest.raises(RuntimeError, match="async checkpoint write.*disk full"):
+            tr.fit(epochs=1)
+
+
+def test_bank_cache_reuses_and_evicts(tmp_path, monkeypatch):
+    """Opt.feature_bank_cache: a second Trainer over the same files takes the
+    first one's bank tensors; after a feature file changes it misses, and the
+    stale entries go."""
+    from s2vt_tpu_torch.training import loop
+    monkeypatch.setattr(loop, "_BANK_CACHE", {})
+    data = make_synthetic_corpus(str(tmp_path / "c"), n_videos=32, vocab_extra=20, feat_len=L,
+                                 feat_dim=F, seed=5)
+    kw = dict(device_feature_bank="on", feature_bank_cache=True, writer=None)
+    a, b = (port_trainer(data, tmp_path / n, **kw) for n in "ab")
+    assert a._bank["train"] is b._bank["train"] and a._bank["valid"] is b._bank["valid"]
+    assert len(loop._BANK_CACHE) == 2
+    off = port_trainer(data, tmp_path / "off", device_feature_bank="on", writer=None)
+    assert off._bank["train"] is not a._bank["train"]
+    victim = a.train_ds.feat_paths[3]
+    np.save(victim, np.full((L, F), 7.0, np.float32))
+    st = os.stat(victim)
+    os.utime(victim, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    c = port_trainer(data, tmp_path / "c2", **kw)
+    assert c._bank["train"] is not a._bank["train"]
+    np.testing.assert_array_equal(c._bank["train"][3].numpy(), 7.0)
+    assert torch.equal(c._bank["valid"], a._bank["valid"])
+    assert len(loop._BANK_CACHE) == 2    # both old entries held the changed file's stats
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_streaming_with_prefetch_matches_the_bank(corpus, tmp_path, depth):
+    """Streaming through the native loader with prefetch_depth 1-3 gives
+    the feature bank's losses bit for bit."""
+    bank = port_trainer(corpus, tmp_path / "bank", device_feature_bank="on", writer=None)
+    stream = port_trainer(corpus, tmp_path / "stream", device_feature_bank="off",
+                          prefetch_depth=depth, writer=None)
+    assert stream.train_ds.effective_backend() == "native" and not stream.use_feature_bank
+    want, got = bank.fit(epochs=2), stream.fit(epochs=2)
+    for key in ("train_loss", "valid_loss"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_trainer_checks_feature_shape(corpus, tmp_path):
@@ -339,3 +533,34 @@ def test_trainer_step_on_card_launches_each_kernel_once(corpus, tmp_path):
     for k, g in results["cpu"][1].items():
         np.testing.assert_allclose(results["cuda"][1][k].numpy(), g.numpy(), atol=2e-3,
                                    rtol=2e-3, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_streaming_on_card_matches_the_bank(corpus, tmp_path, depth):
+    """On the card, batches streamed into pinned memory and copied on the
+    Trainer's copy stream give the bank run's losses and weights bit for
+    bit; an async save of the result equals a blocking one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from s2vt_tpu_torch.training import wait_for_saves
+    runs = {}
+    for name, kw in (("bank", dict(device_feature_bank="on")),
+                     ("stream", dict(device_feature_bank="off", prefetch_depth=depth))):
+        tr = Trainer(small_opt(corpus, tmp_path / name, use_pallas=True, **kw), device="cuda",
+                     writer=None)
+        assert tr._copy_stream is not None
+        runs[name] = (tr, tr.fit(epochs=2))
+    (bank, want), (stream, got) = runs["bank"], runs["stream"]
+    assert stream.train_ds.effective_backend() == "native"
+    for key in ("train_loss", "valid_loss"):
+        assert got[key] == want[key], key
+    for (k, a), b in zip(bank.model.state_dict().items(), stream.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    batch = next(stream.train_ds.batches(B, epoch=0, feats_alloc=stream._pinned_feats))
+    assert isinstance(batch.feats.base, torch.Tensor) and batch.feats.base.is_pinned()
+    path = stream.save("async", blocking=False)
+    wait_for_saves()
+    with np.load(os.path.join(path, "params.npz")) as z:
+        for k, v in stream.model.state_dict().items():
+            np.testing.assert_array_equal(z[k.replace(".", "//")], v.cpu().numpy(), err_msg=k)
