@@ -123,6 +123,24 @@ Phases; a failure in any of them exits non-zero before the result line:
               in turns: the bank, and (b)'s with and without the host
               read-ahead thread.
 
+ 13. parallel the parallel slice on the card: a process group of one rank over
+              NCCL (127.0.0.1, a free port) and make_mesh((1, 1));
+              Trainer.fit on phase 4's corpus at H = E = 512, V = 10240,
+              B = 16, f32, use_pallas, with that mesh against the same fit
+              without one (losses and final checkpoint bit for bit, launch
+              counts of #1 and #2 exact); greedy_eval and beam_eval of its
+              checkpoint (the mesh read from its opt.json) and
+              CaptionDecoder(mesh=) against the decode without a mesh
+              (sentences equal, launch counts exact); FeatureExtractor(mesh=)
+              on phase 10's first clip against mesh=None (features equal, #9
+              13 times); kernel #8's value launch (argmax_linear_value) on W
+              split into 2 and 4 vocab shards, merged by merge_argmax, at both
+              vocab sizes, B = 16 and 96, f32 and bf16, valid None, V - 240
+              and V/2 - 7 (the upper shards all padding): tokens and values
+              equal to the launch over the whole vocab on every row, tokens
+              equal to argmax_linear, values within ATOL of the plain
+              version; each shard launch's ms beside the whole vocab's.
+
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
 200} and two vocab sizes (in bf16 with a float32 W, direct route, and with a
 bf16 W as greedy_pick hands it, mma route; each call's route printed and its
@@ -150,6 +168,7 @@ import contextlib
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -202,6 +221,7 @@ REPLACES = {"fused_s2vt_fwd": "s2vt_tpu/ops/pallas_s2vt.py:118",
 # 64-column tile); tokens must equal the plain version's on every row whose
 # top two logits (float64) differ by more than ARGMAX_TIE_RTOL relative.
 ARGMAX_VOCABS = (VOCAB, 10001)
+PARALLEL_SHARDS = (2, 4)   # phase 13: kernel #8 on W split into this many vocab shards
 ARGMAX_TIE_RTOL = 1e-5
 # Kernel #9: VGG16's 13 conv layers at 224 x 224, (H = W, C, K); checked at
 # CONV_CHECK_N frames, timed at N = LENGTH (one clip of 80 frames). Bounds
@@ -264,6 +284,25 @@ def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA)
     return busy / 1e3 / reps
+
+
+def kernel_event_ms(torch, fn, reps: int, symbol: str, warmup: int = 2) -> tuple:
+    """(mean device ms of one launch of the kernel whose name holds
+    ``symbol``, records kept) over ``reps`` calls of ``fn``: the kernel's
+    own time summed by torch.profiler over the records it keeps, divided by
+    their count, so that records it drops do not bias the mean."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key]
+    kept = sum(e.count for e in events)
+    return sum(e.self_device_time_total for e in events) / 1e3 / max(kept, 1), kept
 
 
 def fused_bound_ms(B: int, T: int, hid: int, dtype_name: str):
@@ -2611,6 +2650,224 @@ def phase_data(torch, device, seed, hid, feat, length, vocab, card, clips=DATA_C
     return launches["a"]
 
 
+def argmax_shards(torch, fd, h, w, b, valid, bf16, n):
+    """Kernel #8's value launch on ``n`` contiguous row shards of W (equal
+    where n divides V), each with its own valid count clamp(valid - offset,
+    0, rows), merged by parallel/vocab.py's merge_argmax: (tokens, values)."""
+    from s2vt_tpu_torch.parallel.vocab import merge_argmax
+    V = w.shape[0]
+    bounds = [i * V // n for i in range(n + 1)]
+    vals, idxs = [], []
+    for lo, hi in zip(bounds, bounds[1:]):
+        local = hi - lo if valid is None else max(0, min(valid - lo, hi - lo))
+        tok, val = fd.argmax_linear_value(h, w[lo:hi], b[lo:hi], local, bf16)
+        vals.append(val)
+        idxs.append(tok + lo)
+    return merge_argmax(vals, idxs)
+
+
+def phase_parallel(torch, device, seed, hid, feat, length, vocab, card, reps=50):
+    """13. The parallel slice on one card: a process group of one rank over
+    NCCL (127.0.0.1, a free port) and make_mesh((1, 1)). Trainer.fit with
+    that mesh against the same fit without one (losses and final checkpoint
+    bit for bit; #1 and #2 launched exactly as s2vt_launches says);
+    greedy_eval and beam_eval of its checkpoint (the mesh read from its
+    opt.json) and CaptionDecoder(mesh=) against the decode without a mesh;
+    FeatureExtractor(mesh=) on phase 10's first clip against mesh=None (#9
+    13 times); kernel #8's value launch on W split into 2 and 4 vocab
+    shards, merged, against the launch over the whole vocab (tokens and
+    values bit for bit) and today's argmax_linear (tokens), and each shard
+    launch's ms beside the whole vocab's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from s2vt_tpu_torch.config import Opt
+    from s2vt_tpu_torch.data.dataset import VideoDataset
+    from s2vt_tpu_torch.evaluation.decode import (CaptionDecoder, beam_eval, greedy_eval,
+                                                  model_from_checkpoint)
+    from s2vt_tpu_torch.extract.pipeline import FeatureExtractor
+    from s2vt_tpu_torch.ops import fused_decode as fd
+    from s2vt_tpu_torch.parallel import distributed, make_mesh
+    from s2vt_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise SystemExit(f"the process group runs {dist.get_backend()}, not NCCL")
+        mesh = make_mesh((1, 1), "cuda")
+        print(f"parallel: NCCL process group of {dist.get_world_size()} rank on 127.0.0.1:{port}, "
+              f"mesh {mesh} [{card}]", flush=True)
+        per_train, per_valid, per_greedy, per_beam = s2vt_launches("lstm", 1, length)
+        with tempfile.TemporaryDirectory() as root:
+            meta = train_corpus(root, seed, feat, length, TRAIN_CLIPS)
+            base = Opt(caption_file=meta["captions_file"], feats_path=meta["feat_path"],
+                       gts_file=meta["gts_file"], train_length=length, dim_hidden=hid,
+                       dim_embed=hid, feat_dim=feat, vocab_pad_multiple=vocab,
+                       batch_size=MAIN_BATCH, use_pallas=True, compute_dtype="float32",
+                       EPOCHS=TRAIN_EPOCHS, lr=1e-3, seed=seed, log_dir=f"{root}/runs")
+            runs = {}
+            for name, m in (("no mesh", None), ("mesh (1, 1)", mesh)):
+                reset_launches()
+                t0 = time.perf_counter()
+                tr = Trainer(base.replace(save_path=f"{root}/{name[:2]}"), mesh=m, writer=None)
+                hist = tr.fit()
+                sync()
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+                steps = TRAIN_EPOCHS * -(-len(tr.train_ds) // MAIN_BATCH)
+                vsteps = TRAIN_EPOCHS * -(-len(tr.valid_ds) // MAIN_BATCH)
+                want = expect(train=(per_train, steps), valid=(per_valid, vsteps))
+                print(f"parallel: Trainer.fit {name}: V={tr.vocab_size} H={hid} B={MAIN_BATCH} "
+                      f"f32, {TRAIN_EPOCHS} epochs in {wall:.3f} s, train_loss="
+                      f"{hist['train_loss']} valid_loss={hist['valid_loss']} launches="
+                      f"{launches} [{card}]", flush=True)
+                if launches != want:
+                    raise SystemExit(f"parallel: Trainer.fit {name} launched {launches}, "
+                                     f"not {want}")
+                final = os.path.join(tr.opt.save_path, tr.opt.start_time + "final")
+                runs[name] = (hist, final)
+            (h_a, f_a), (h_b, f_b) = runs["no mesh"], runs["mesh (1, 1)"]
+            if any(h_a[k] != h_b[k] for k in ("train_loss", "valid_loss", "lr")):
+                raise SystemExit(f"parallel: the mesh run's losses {h_b} differ from {h_a}")
+            arr_a, arr_b = checkpoint_arrays(f_a), checkpoint_arrays(f_b)
+            if arr_a.keys() != arr_b.keys() or not all(np.array_equal(arr_a[k], arr_b[k])
+                                                       for k in arr_a):
+                raise SystemExit("parallel: the mesh run's final checkpoint differs from the "
+                                 "run without a mesh")
+            print(f"parallel: the mesh run's losses and final params.npz / optimizer.npz "
+                  f"({len(arr_a)} arrays) equal the run without a mesh bit for bit [{card}]",
+                  flush=True)
+
+            ds = VideoDataset(meta["captions_file"], meta["feat_path"], max_len=length,
+                              mode="test", seed=seed)
+            n_req = -(-len(ds) // MAIN_BATCH)
+            for entry, per_req, kw in (
+                    (greedy_eval, per_greedy, {}),
+                    (beam_eval, per_beam, dict(beam_width=BEAM_WIDTH,
+                                               max_beam_depth=BEAM_DEPTH))):
+                want_preds = entry(f_a, batch_size=MAIN_BATCH, **kw)
+                reset_launches()
+                got = entry(f_b, batch_size=MAIN_BATCH, **kw)
+                sync()
+                eval_launches = read_launches()
+                _, model = model_from_checkpoint(f_b, ds.vocab_size)
+                dec = CaptionDecoder(model, ds, beam_width=BEAM_WIDTH,
+                                     max_beam_depth=BEAM_DEPTH, mesh=mesh)
+                reset_launches()
+                got_mesh = (dec.greedy if entry is greedy_eval else dec.beam)(MAIN_BATCH)
+                sync()
+                mesh_launches = read_launches()
+                want = expect(requests=(per_req, n_req))
+                with open(os.path.join(f_b, "opt.json"), encoding="utf-8") as f:
+                    shape = tuple(json.load(f)["mesh_shape"])
+                print(f"parallel: {entry.__name__} of the mesh run's checkpoint (its opt.json's "
+                      f"mesh_shape {shape}) "
+                      f"and CaptionDecoder(mesh=(1, 1)): {len(got)} clips, launches "
+                      f"{eval_launches} and {mesh_launches}; sentences equal to the decode "
+                      f"without a mesh: {got == want_preds and got_mesh == want_preds} "
+                      f"[{card}]", flush=True)
+                if got != want_preds or got_mesh != want_preds or not got:
+                    raise SystemExit(f"parallel: {entry.__name__} with the mesh differs from the "
+                                     f"decode without one")
+                if eval_launches != want or mesh_launches != want:
+                    raise SystemExit(f"parallel: {entry.__name__} launched {eval_launches} / "
+                                     f"{mesh_launches}, not {want}")
+
+        rng = np.random.default_rng(seed)                 # phase 10's first clip
+        clip = rng.integers(0, 256, (length, *CLIP_SHAPE, 3), dtype=np.uint8)
+        want_feats = FeatureExtractor("vgg16")(clip)
+        ex = FeatureExtractor("vgg16", mesh=mesh)
+        reset_launches()
+        feats = ex(clip)
+        sync()
+        launches, routes = read_launches(), read_routes("conv3x3_bn_relu")
+        print(f"parallel: FeatureExtractor('vgg16', mesh=(1, 1)) on a [{length}, "
+              f"{CLIP_SHAPE[0]}, {CLIP_SHAPE[1]}, 3] clip: launches={launches} (#9 routes "
+              f"{routes}), features equal to mesh=None: {np.array_equal(feats, want_feats)} "
+              f"[{card}]", flush=True)
+        if launches != expect(forward=({"conv3x3_bn_relu": 13}, 1)) or routes != VGG_ROUTES:
+            raise SystemExit(f"parallel: the mesh extraction launched {launches}, {routes}")
+        if not np.array_equal(feats, want_feats):
+            raise SystemExit("parallel: the mesh extraction's features differ from mesh=None")
+    finally:
+        distributed.shutdown()
+
+    gen = torch.Generator(device=device).manual_seed(2468)
+    for V in ARGMAX_VOCABS:
+        for B in TIMED_BATCHES:
+            for name in ("float32", "bfloat16"):
+                bf16 = name == "bfloat16"
+                dt = torch.bfloat16 if bf16 else None
+                h = torch.randn(B, hid, device=device, generator=gen)
+                w = fd.pick_weight(0.05 * torch.randn(V, hid, device=device, generator=gen), dt)
+                b = torch.randn(V, device=device, generator=gen)
+                for valid in (None, V - 240, V // 2 - 7):
+                    tok, val = fd.argmax_linear_value(h, w, b, valid, bf16)
+                    today = fd.argmax_linear(h, w, b, valid, bf16)
+                    plain_tok, plain_val = fd.argmax_linear_reference(h, w, b, valid, bf16,
+                                                                      with_value=True)
+                    n_diff, n_bad = argmax_rows_ok(torch, tok, plain_tok, [h, w, b], valid,
+                                                   bf16, False)
+                    err = float((val - plain_val).abs().max())
+                    if n_bad or err > ATOL[name] or not torch.equal(tok, today):
+                        raise SystemExit(f"argmax_linear_value B={B} V={V} valid={valid} {name}: "
+                                         f"{n_bad} rows off the plain version, value error "
+                                         f"{err}, tokens equal to argmax_linear: "
+                                         f"{torch.equal(tok, today)}")
+                    for n in PARALLEL_SHARDS:
+                        reset_launches()
+                        m_tok, m_val = argmax_shards(torch, fd, h, w, b, valid, bf16, n)
+                        sync()
+                        if read_launches()["argmax_linear"] != n:
+                            raise SystemExit(f"{n} shards launched {read_launches()}")
+                        bad = ((m_tok != tok) | (m_val != val)).nonzero().flatten().tolist()
+                        for row in bad[:8]:
+                            print(f"  row {row}: shards ({int(m_tok[row])}, {float(m_val[row])!r})"
+                                  f" whole ({int(tok[row])}, {float(val[row])!r})", flush=True)
+                        if bad:
+                            raise SystemExit(f"argmax_linear on {n} vocab shards, B={B} V={V} "
+                                             f"valid={valid} {name}: {len(bad)} rows differ "
+                                             f"from the launch over the whole vocab")
+                print(f"parallel: argmax_linear_value B={B} V={V} {name} route="
+                      f"{fd.argmax_linear_route(hid, w.dtype, bf16, (h.data_ptr(), w.data_ptr()))}"
+                      f": on {' and '.join(map(str, PARALLEL_SHARDS))} vocab shards merged, "
+                      f"tokens and values equal to the whole vocab's on every row (valid None, "
+                      f"V-240, V/2-7: the upper shards all padding), tokens equal to "
+                      f"argmax_linear; value error against the plain version <= {ATOL[name]} "
+                      f"[{card}]", flush=True)
+    V = ARGMAX_VOCABS[0]
+    for B in TIMED_BATCHES:
+        for name in ("float32", "bfloat16"):
+            bf16 = name == "bfloat16"
+            dt = torch.bfloat16 if bf16 else None
+            h = torch.randn(B, hid, device=device, generator=gen)
+            w = fd.pick_weight(0.05 * torch.randn(V, hid, device=device, generator=gen), dt)
+            b = torch.randn(V, device=device, generator=gen)
+            calls = {"whole": lambda: fd.argmax_linear_value(h, w, b, None, bf16),
+                     "argmax_linear": lambda: fd.argmax_linear(h, w, b, None, bf16)}
+            for n in PARALLEL_SHARDS:
+                calls[f"1/{n}"] = (lambda ws, bs: lambda: fd.argmax_linear_value(
+                    h, ws, bs, None, bf16))(w[:V // n], b[:V // n])
+            runs = {k: [] for k in calls}
+            for _ in range(3):                   # in turns; the median of three
+                for k, fn in calls.items():
+                    runs[k].append(kernel_event_ms(torch, fn, reps, SYMBOLS["argmax_linear"]))
+            ms = {k: statistics.median(t for t, _ in r) for k, r in runs.items()}
+            kept = min(n for r in runs.values() for _, n in r)
+            print(f"time argmax_linear_value B={B} V={V} H={hid} {name}: whole vocab "
+                  f"{ms['whole']:.4f} ms (argmax_linear {ms['argmax_linear']:.4f}); one shard "
+                  + ", ".join(f"of V/{n} {ms[f'1/{n}']:.4f} ms" for n in PARALLEL_SHARDS)
+                  + f" (device time of the kernel's records by torch.profiler, median of 3 "
+                  f"turns of {reps} launches, at least {kept} records kept) [{card}]",
+                  flush=True)
+    print(f"phase 13 (parallel): {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2730,6 +2987,9 @@ def main() -> int:
     # the Trainer's options
     phase_data(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, card)
     stamp("phase 12")
+    # 13. the parallel slice: NCCL at world size 1, a (1, 1) mesh
+    phase_parallel(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, card)
+    stamp("phase 13")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
     # at the T of that path (#5: GRU training, where 24 of its 32 phase-8

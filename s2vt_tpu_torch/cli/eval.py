@@ -4,7 +4,10 @@ Counterpart of ``s2vt_tpu/cli/eval.py`` (the reference's ``python eval.py``,
 eval.py:222-235): decode a split of a checkpoint greedily (or with beam
 search) and score BLEU-1..4 / METEOR / ROUGE-L / CIDEr against gts.json;
 prints one ``metric: value`` line per score. ``--device`` picks the torch
-device: the CUDA card unless ``--device cpu`` is given.
+device: the CUDA card unless ``--device cpu`` is given. A checkpoint trained
+with an ``opt.mesh_shape`` other than (1, 1) decodes over that mesh, under
+``python -m torch.distributed.run --nproc_per_node D*M`` (rank 0 scores and
+prints).
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = ap.parse_args(argv)
 
     from s2vt_tpu_torch.evaluation import beam_eval, greedy_eval, score_predictions
+    from s2vt_tpu_torch.parallel import distributed
 
+    distributed.initialize(device=args.device)   # under torchrun; else nothing
     if args.beam:
         preds = beam_eval(args.model_path, args.caption_file, args.feats_path,
                           batch_size=args.batch_size, beam_width=args.beam_width,
@@ -58,6 +63,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         preds = greedy_eval(args.model_path, args.caption_file, args.feats_path,
                             batch_size=args.batch_size, mode=args.split, device=args.device)
 
+    if distributed.process_index() != 0:
+        return {}
     if args.dump_predictions:
         with open(args.dump_predictions, "w", encoding="utf-8") as f:
             json.dump(preds, f, indent=1)

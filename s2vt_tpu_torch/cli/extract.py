@@ -3,7 +3,9 @@
 Counterpart of ``s2vt_tpu/cli/extract.py`` (the reference's ``python
 extract_features.py``), with its flags. The backbone is built once and
 streamed over the clips; VGG16's conv blocks run the fused conv kernel.
-``--device`` picks the torch device (default: the CUDA card).
+``--device`` picks the torch device (default: the CUDA card). ``--mesh_shape
+D M`` under ``python -m torch.distributed.run --nproc_per_node D*M`` splits
+each forward's frames over the D data ranks; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -33,15 +35,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="fix-mode clips per device forward (1 disables)")
     ap.add_argument("--device", default=None,
                     help="torch device to extract on (default: the CUDA card)")
+    ap.add_argument("--mesh_shape", type=int, nargs=2, default=None, metavar="N",
+                    help="(data, model) mesh under torch.distributed.run")
     args = ap.parse_args(argv)
 
     from s2vt_tpu_torch.extract import extract
+    from s2vt_tpu_torch.parallel import distributed, make_mesh
 
+    mesh = None
+    if args.mesh_shape is not None and tuple(args.mesh_shape) != (1, 1):
+        distributed.initialize(device=args.device)
+        mesh = make_mesh(args.mesh_shape, args.device)
     n = extract(args.video_path, args.feat_path, model=args.model, mode=args.mode,
                 frames_num=args.frames_num, interval=args.interval, weights=args.weights,
                 compute_dtype=args.compute_dtype, clip_batch=args.clip_batch,
-                device=args.device)
-    print(f"extracted features for {n} clips -> {args.feat_path}", flush=True)
+                device=args.device, mesh=mesh)
+    if distributed.process_index() == 0:
+        print(f"extracted features for {n} clips -> {args.feat_path}", flush=True)
     return n
 
 

@@ -5,6 +5,11 @@ train.py``, train.py:178-179). Every ``Opt`` field is a flag, e.g.
 ``--lr 1e-4 --batch_size 16 --EPOCHS 300``; ``--config`` loads an
 ``opt.json`` (as ``save_opt`` writes it) as the base values. ``--device``
 picks the torch device: the CUDA card unless ``--device cpu`` is given.
+
+Data- and vocab-parallel: ``--mesh_shape D M`` (or ``D,M``) under
+``python -m torch.distributed.run --nproc_per_node D*M``, which sets the
+ranks' environment for ``parallel/distributed.py::initialize``: NCCL with
+one card per rank, gloo with ``--device cpu``. Rank 0 prints.
 """
 
 from __future__ import annotations
@@ -29,12 +34,17 @@ def add_opt_flags(ap: argparse.ArgumentParser, opt: Opt) -> None:
         elif isinstance(val, (int, float, str)):
             ap.add_argument(f"--{f.name}", type=type(val), default=None)
         elif isinstance(val, tuple):
-            ap.add_argument(f"--{f.name}", type=lambda s: tuple(int(x) for x in s.split(",")),
-                            default=None, metavar="N,M")
+            ap.add_argument(f"--{f.name}", type=_ints, nargs="+", default=None, metavar="N")
+
+
+def _ints(s: str) -> tuple:
+    """"2,2" or "2" -> its ints (a tuple flag takes "N M" or "N,M")."""
+    return tuple(int(x) for x in s.split(",") if x)
 
 
 def opt_from_args(args: argparse.Namespace, base: Opt) -> Opt:
-    overrides = {k: v for k, v in vars(args).items() if v is not None and k not in _OWN_FLAGS}
+    overrides = {k: tuple(x for part in v for x in part) if isinstance(v, list) else v
+                 for k, v in vars(args).items() if v is not None and k not in _OWN_FLAGS}
     return base.replace(**overrides)
 
 
@@ -61,11 +71,15 @@ def main(argv: Optional[Sequence[str]] = None):
     base = load_opt(args.config) if args.config else Opt()
     opt = opt_from_args(args, base)
 
+    from s2vt_tpu_torch.parallel import distributed
     from s2vt_tpu_torch.training.loop import Trainer
+    distributed.initialize(device=args.device)   # under torchrun; else nothing
+    rank0 = distributed.process_index() == 0
     trainer = Trainer(opt, device=args.device)
-    history = trainer.fit(on_epoch_end=_print_epoch)
-    print(f"finished after {len(history['train_loss'])} epochs; best valid loss "
-          f"{min(history['valid_loss'], default=float('nan')):.4f}", flush=True)
+    history = trainer.fit(on_epoch_end=_print_epoch if rank0 else None)
+    if rank0:
+        print(f"finished after {len(history['train_loss'])} epochs; best valid loss "
+              f"{min(history['valid_loss'], default=float('nan')):.4f}", flush=True)
     return trainer
 
 

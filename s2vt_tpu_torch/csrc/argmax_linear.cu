@@ -82,6 +82,14 @@
 // result does not depend on the order in which the blocks ran. It resets the
 // counter to 0 for the next launch. One launch per call.
 //
+// The "_value" entry points launch the same kernels and write, beside each
+// row's token, its winning logit (float32; -inf where the token is a masked
+// column, so a vocab shard with no valid column never wins). A model whose
+// vocab is split over ranks (parallel/vocab.py) launches one per shard and
+// merges the (value, global index) pairs: the larger value, the lower index
+// on a tie, which is the whole vocab's first maximum. A column's sum does not
+// depend on V, so the shards' values are the whole launch's bit for bit.
+//
 // Bounds on an H100 SXM at the MSVD width (V = 10240, H = 512). B = 16,
 // float32: W is 21 MB -> ~6.3 us at 3.35 TB/s; 2*B*H*V = 0.17 GFLOP, as
 // three TF32 passes -> ~1.0 us at 495 TFLOP/s (on the CUDA cores: ~2.5 us at
@@ -138,8 +146,10 @@ __device__ __forceinline__ bool beats(float v1, int i1, float v2, int i2) {
 __device__ __forceinline__ void finish_row_tile(const float* __restrict__ pmax,
                                                 const int* __restrict__ pidx,
                                                 long long* __restrict__ out,
+                                                float* __restrict__ out_val,
                                                 unsigned int* __restrict__ counter, int rt,
-                                                int n_vt, int B, int row0, int rows) {
+                                                int n_vt, int B, int row0, int rows,
+                                                int valid) {
   __shared__ bool is_last;
   __threadfence();
   __syncthreads();
@@ -169,7 +179,10 @@ __device__ __forceinline__ void finish_row_tile(const float* __restrict__ pmax,
         bi = oi;
       }
     }
-    if (lane == 0) out[row0 + r] = bi;
+    if (lane == 0) {
+      out[row0 + r] = bi;
+      if (out_val != nullptr) out_val[row0 + r] = bi < valid ? bv : -INFINITY;
+    }
   }
   if (threadIdx.x == 0) counter[rt] = 0u;     // ready for the next launch
 }
@@ -187,9 +200,9 @@ template <int RB, int VR>
 __global__ void __launch_bounds__(kThreads)
 argmax_linear_kernel(const float* __restrict__ h, const float* __restrict__ w,
                      const float* __restrict__ bias, long long* __restrict__ out,
-                     float* __restrict__ pmax, int* __restrict__ pidx,
-                     unsigned int* __restrict__ counter, int B, int H, int V, int valid,
-                     int bf16) {
+                     float* __restrict__ out_val, float* __restrict__ pmax,
+                     int* __restrict__ pidx, unsigned int* __restrict__ counter, int B, int H,
+                     int V, int valid, int bf16) {
   extern __shared__ float hs[];                // [RB][H]
   __shared__ float red_v[kWarps][32];
   __shared__ int red_i[kWarps][32];
@@ -264,21 +277,21 @@ argmax_linear_kernel(const float* __restrict__ h, const float* __restrict__ w,
     pmax[(size_t)vt * B + row0 + r] = bv;
     pidx[(size_t)vt * B + row0 + r] = bi;
   }
-  finish_row_tile(pmax, pidx, out, counter, rt, gridDim.x, B, row0, rows);
+  finish_row_tile(pmax, pidx, out, out_val, counter, rt, gridDim.x, B, row0, rows, valid);
 }
 
 template <int RB, int VR>
-int launch(const float* h, const float* w, const float* bias, long long* out, float* pmax,
-           int* pidx, unsigned int* counter, int B, int H, int V, int valid, int bf16,
-           cudaStream_t stream) {
+int launch(const float* h, const float* w, const float* bias, long long* out, float* out_val,
+           float* pmax, int* pidx, unsigned int* counter, int B, int H, int V, int valid,
+           int bf16, cudaStream_t stream) {
   const size_t smem = (size_t)RB * H * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(argmax_linear_kernel<RB, VR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int kVT = kWarps * VR;
   const dim3 grid((V + kVT - 1) / kVT, (B + RB - 1) / RB), block(kThreads);
-  argmax_linear_kernel<RB, VR><<<grid, block, smem, stream>>>(h, w, bias, out, pmax, pidx,
-                                                              counter, B, H, V, valid, bf16);
+  argmax_linear_kernel<RB, VR><<<grid, block, smem, stream>>>(
+      h, w, bias, out, out_val, pmax, pidx, counter, B, H, V, valid, bf16);
   return (int)cudaGetLastError();
 }
 
@@ -336,9 +349,9 @@ template <typename T, int MI>
 __global__ void __launch_bounds__(MmaTile<T, MI>::kThreads)
 argmax_linear_kernel_mma(const float* __restrict__ h, const T* __restrict__ w,
                          const float* __restrict__ bias, long long* __restrict__ out,
-                         float* __restrict__ pmax, int* __restrict__ pidx,
-                         unsigned int* __restrict__ counter, int B, int H, int V, int valid,
-                         int row_tiles) {
+                         float* __restrict__ out_val, float* __restrict__ pmax,
+                         int* __restrict__ pidx, unsigned int* __restrict__ counter, int B,
+                         int H, int V, int valid, int row_tiles) {
   using G = MmaTile<T, MI>;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -564,12 +577,12 @@ argmax_linear_kernel_mma(const float* __restrict__ h, const T* __restrict__ w,
     pmax[(size_t)vt * B + row0 + tid] = bv;
     pidx[(size_t)vt * B + row0 + tid] = bi;
   }
-  finish_row_tile(pmax, pidx, out, counter, rt, n_vt, B, row0, rows);
+  finish_row_tile(pmax, pidx, out, out_val, counter, rt, n_vt, B, row0, rows, valid);
 }
 
 template <typename T, int MI>
-int launch_mma(const void* h, const void* w, const void* bias, void* out, void* pmax,
-               void* pidx, void* counter, int B, int H, int V, int valid,
+int launch_mma(const void* h, const void* w, const void* bias, void* out, void* out_val,
+               void* pmax, void* pidx, void* counter, int B, int H, int V, int valid,
                cudaStream_t stream) {
   using G = MmaTile<T, MI>;
   const int row_tiles = (B + G::kRows - 1) / G::kRows;
@@ -581,19 +594,57 @@ int launch_mma(const void* h, const void* w, const void* bias, void* out, void* 
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, G::kThreads, G::kSmem, stream>>>(
       static_cast<const float*>(h), static_cast<const T*>(w), static_cast<const float*>(bias),
-      static_cast<long long*>(out), static_cast<float*>(pmax), static_cast<int*>(pidx),
+      static_cast<long long*>(out), static_cast<float*>(out_val), static_cast<float*>(pmax),
+      static_cast<int*>(pidx),
       static_cast<unsigned int*>(counter), B, H, V, valid, row_tiles);
   return (int)cudaGetLastError();
 }
 
 // One m16 tile of rows per block for B <= 16, else four.
 template <typename T>
-int launch_mma_for(const void* h, const void* w, const void* bias, void* out, void* pmax,
-                   void* pidx, void* counter, int B, int H, int V, int valid,
+int launch_mma_for(const void* h, const void* w, const void* bias, void* out, void* out_val,
+                   void* pmax, void* pidx, void* counter, int B, int H, int V, int valid,
                    cudaStream_t stream) {
-  if (B <= 16) return launch_mma<T, 1>(h, w, bias, out, pmax, pidx, counter, B, H, V, valid,
-                                       stream);
-  return launch_mma<T, 4>(h, w, bias, out, pmax, pidx, counter, B, H, V, valid, stream);
+  if (B <= 16)
+    return launch_mma<T, 1>(h, w, bias, out, out_val, pmax, pidx, counter, B, H, V, valid,
+                            stream);
+  return launch_mma<T, 4>(h, w, bias, out, out_val, pmax, pidx, counter, B, H, V, valid, stream);
+}
+
+// The "direct" route, with or without the winning values (out_val may be null).
+int direct_entry(const void* h, const void* w, const void* bias, void* out, void* out_val,
+                 void* pmax, void* pidx, void* counter, int B, int H, int V, int valid, int bf16,
+                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto* ph = static_cast<const float*>(h);
+  auto* pw = static_cast<const float*>(w);
+  auto* pb = static_cast<const float*>(bias);
+  auto* po = static_cast<long long*>(out);
+  auto* pv = static_cast<float*>(out_val);
+  auto* pm = static_cast<float*>(pmax);
+  auto* pi = static_cast<int*>(pidx);
+  auto* pc = static_cast<unsigned int*>(counter);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (B <= 16) return launch<16, 4>(ph, pw, pb, po, pv, pm, pi, pc, B, H, V, valid, bf16, st);
+  return launch<32, 2>(ph, pw, pb, po, pv, pm, pi, pc, B, H, V, valid, bf16, st);
+}
+
+// The "mma" route, with or without the winning values (out_val may be null).
+int mma_entry(const void* h, const void* w, const void* bias, void* out, void* out_val,
+              void* pmax, void* pidx, void* counter, int B, int H, int V, int valid, int bf16,
+              int device, void* stream) {
+  if (H % (bf16 ? 8 : 4) != 0 || reinterpret_cast<uintptr_t>(h) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_mma_for<__nv_bfloat16>(h, w, bias, out, out_val, pmax, pidx, counter, B, H, V,
+                                         valid, st);
+  return launch_mma_for<float>(h, w, bias, out, out_val, pmax, pidx, counter, B, H, V, valid,
+                               st);
 }
 
 }  // namespace
@@ -630,18 +681,8 @@ size_t argmax_linear_smem_bytes(int H) { return (size_t)32 * H * sizeof(float); 
 int argmax_linear(const void* h, const void* w, const void* bias, void* out, void* pmax,
                   void* pidx, void* counter, int B, int H, int V, int valid, int bf16, int device,
                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  auto* ph = static_cast<const float*>(h);
-  auto* pw = static_cast<const float*>(w);
-  auto* pb = static_cast<const float*>(bias);
-  auto* po = static_cast<long long*>(out);
-  auto* pm = static_cast<float*>(pmax);
-  auto* pi = static_cast<int*>(pidx);
-  auto* pc = static_cast<unsigned int*>(counter);
-  auto* st = static_cast<cudaStream_t>(stream);
-  if (B <= 16) return launch<16, 4>(ph, pw, pb, po, pm, pi, pc, B, H, V, valid, bf16, st);
-  return launch<32, 2>(ph, pw, pb, po, pm, pi, pc, B, H, V, valid, bf16, st);
+  return direct_entry(h, w, bias, out, nullptr, pmax, pidx, counter, B, H, V, valid, bf16,
+                      device, stream);
 }
 
 // The "mma" route: the same arguments, but w is bf16 when bf16 != 0 (float32
@@ -651,16 +692,26 @@ int argmax_linear(const void* h, const void* w, const void* bias, void* out, voi
 int argmax_linear_mma(const void* h, const void* w, const void* bias, void* out, void* pmax,
                       void* pidx, void* counter, int B, int H, int V, int valid, int bf16,
                       int device, void* stream) {
-  if (H % (bf16 ? 8 : 4) != 0 || reinterpret_cast<uintptr_t>(h) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  auto* st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_mma_for<__nv_bfloat16>(h, w, bias, out, pmax, pidx, counter, B, H, V, valid,
-                                         st);
-  return launch_mma_for<float>(h, w, bias, out, pmax, pidx, counter, B, H, V, valid, st);
+  return mma_entry(h, w, bias, out, nullptr, pmax, pidx, counter, B, H, V, valid, bf16, device,
+                   stream);
+}
+
+// Both routes once more, writing also each row's winning logit to out_val [B]
+// float32: the value of the token in out, or -inf where that token is a
+// masked column (index >= valid; with valid == 0, every row). A vocab shard's
+// launch: the caller merges the shards' (value, offset + index) pairs.
+int argmax_linear_value(const void* h, const void* w, const void* bias, void* out,
+                        void* out_val, void* pmax, void* pidx, void* counter, int B, int H, int V,
+                        int valid, int bf16, int device, void* stream) {
+  return direct_entry(h, w, bias, out, out_val, pmax, pidx, counter, B, H, V, valid, bf16,
+                      device, stream);
+}
+
+int argmax_linear_mma_value(const void* h, const void* w, const void* bias, void* out,
+                            void* out_val, void* pmax, void* pidx, void* counter, int B, int H,
+                            int V, int valid, int bf16, int device, void* stream) {
+  return mma_entry(h, w, bias, out, out_val, pmax, pidx, counter, B, H, V, valid, bf16, device,
+                   stream);
 }
 
 // Message for a cudaError_t returned above.

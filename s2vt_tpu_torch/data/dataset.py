@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import json
 import pathlib
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -180,13 +180,17 @@ class VideoDataset:
     def batches(self, batch_size: int, shuffle: Optional[bool] = None,
                 epoch: int = 0, drop_last: bool = False,
                 include_feats: bool = True,
-                feats_alloc: Optional[Callable[[], np.ndarray]] = None) -> Iterator[Batch]:
+                feats_alloc: Optional[Callable[[], np.ndarray]] = None,
+                feat_rows: Optional[Tuple[int, int]] = None) -> Iterator[Batch]:
         """Yield fixed-shape batches, deterministic given (seed, epoch).
         ``include_feats=False`` reads no features (Batch.feats is None), for
         consumers that gather from a feature bank by ``Batch.rows``; label
         sampling is the same either way. ``feats_alloc()``, when given,
-        returns the writeable C-order float32 [B, feat_len, feat_dim] array
-        each batch's features are written into (a fresh one per batch)."""
+        returns the writeable C-order float32 [n, feat_len, feat_dim] array
+        each batch's features are written into (a fresh one per batch).
+        ``feat_rows`` (lo, hi): read the features of batch rows lo..hi-1
+        only (a data rank's rows), so ``Batch.feats`` is [hi - lo, ...]; the
+        other fields stay those of the whole batch."""
         if shuffle is None:
             shuffle = self.mode == "train"
         n = len(self.feat_paths)
@@ -195,21 +199,26 @@ class VideoDataset:
         if drop_last:
             order = order[:(n // batch_size) * batch_size]
         B = batch_size
-        feat_shape = (B, self.feat_len, self.feat_dim)
+        lo, hi = (0, B) if feat_rows is None else feat_rows
+        feat_shape = (hi - lo, self.feat_len, self.feat_dim)
+        # The rows whose features are read: each batch's lo..hi-1.
+        read = order if feat_rows is None else np.concatenate(
+            [order[s + lo:s + hi] for s in range(0, len(order), B)] + [order[:0]])
 
         native_iter = None
-        if include_feats and len(order) and self._ensure_native() is not None:
-            native_iter = self._native.iter_batches(order, B, alloc=feats_alloc)
+        if include_feats and len(read) and self._ensure_native() is not None:
+            native_iter = self._native.iter_batches(read, hi - lo, alloc=feats_alloc)
 
         try:
             for start in range(0, len(order), B):
                 idx = order[start:start + B]
+                n_read = len(idx[lo:hi])
                 labels = np.zeros((B, self.max_len), np.int32)
                 mask = np.zeros((B, self.max_len), np.float32)
                 valid = np.zeros((B,), np.float32)
                 rows = np.zeros((B,), np.int32)
                 ids = [""] * B
-                if native_iter is not None:
+                if native_iter is not None and n_read:
                     feats = next(native_iter)   # read ahead on the pool's threads
                 elif not include_feats:
                     feats = None
@@ -217,14 +226,14 @@ class VideoDataset:
                     feats = np.zeros(feat_shape, np.float32)
                 else:
                     feats = feats_alloc()
-                    feats[len(idx):] = 0.0
+                    feats[n_read:] = 0.0
                 for row, i in enumerate(idx):
                     vid = self.feat_paths[i].stem
                     caps = self.captions[vid]
                     cap = caps[rng.integers(len(caps))]
                     labels[row], mask[row] = self._encode_caption(cap)
-                    if include_feats and native_iter is None:
-                        feats[row] = self._load_feat(i)
+                    if include_feats and native_iter is None and lo <= row < hi:
+                        feats[row - lo] = self._load_feat(i)
                     valid[row] = 1.0
                     rows[row] = i
                     ids[row] = vid

@@ -5,7 +5,9 @@ and ``beam_eval()``, eval.py:30-99; scoring is ``evaluation/scorer.py``, the
 command line ``cli/eval.py``). The model is rebuilt from the checkpoint's
 ``opt.json`` and its weights loaded from ``params.npz``
 (training/checkpoint.py). Batches are fixed-shape with a ``valid`` row mask.
-Decoding runs on one device.
+Decoding runs on one device, or with a mesh (``parallel/mesh.py``) split over
+the ranks: each batch's rows over the data axis, the vocab over the model
+axis (``parallel/vocab.py``), the captions gathered on every rank.
 
 Every entry point takes ``device=None``, meaning the card; without a card it
 raises unless the caller passes ``device="cpu"``.
@@ -16,12 +18,15 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from s2vt_tpu_torch.config import Opt
 from s2vt_tpu_torch.data.corpus import ids_to_sentence  # noqa: F401  (re-exported)
 from s2vt_tpu_torch.data.dataset import VideoDataset
 from s2vt_tpu_torch.training.checkpoint import load_checkpoint, load_config
-from s2vt_tpu_torch.training.loop import Model, build_model, pad_to_multiple
+from s2vt_tpu_torch.parallel import mesh as mesh_lib
+from s2vt_tpu_torch.parallel.vocab import shard_model_
+from s2vt_tpu_torch.training.loop import Model, build_model
 from s2vt_tpu_torch.utils.device import resolve_device
 from s2vt_tpu_torch.utils.weights import params_from_jax
 
@@ -35,13 +40,21 @@ class CaptionDecoder:
     features of ``dataset.feat_paths[i]`` (the Trainer's bank). With it,
     batches read no features from disk; each batch's rows are gathered on
     the device by ``Batch.rows``, so repeated decodes (the Trainer's metric
-    eval) do not stream the split again."""
+    eval) do not stream the split again.
+
+    ``mesh``: a (data, model) ``DeviceMesh``. Each batch's rows are split
+    over the data ranks (ceil(B / dp) each, the last ranks fewer), a
+    whole model's vocab leaves over the model ranks (a model the Trainer
+    split already stays as it is), and every rank returns all captions."""
 
     def __init__(self, model: Model, dataset: VideoDataset, device=None, beam_width: int = 3,
                  max_beam_depth: int = 30, beam_score_mode: str = "cumulative",
-                 feature_bank: Optional[torch.Tensor] = None):
+                 feature_bank: Optional[torch.Tensor] = None, mesh=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            shard_model_(self.model, mesh)
         self.dataset = dataset
         self.bank = feature_bank
         sp = dataset.specials
@@ -54,18 +67,29 @@ class CaptionDecoder:
         features to token rows [B, n], cut at the first <eos> (and stripped of
         leading ``sos_ix`` tokens when it is given)."""
         preds: Dict[str, str] = {}
+        lo, hi = ((0, batch_size) if self.mesh is None
+                  else mesh_lib.batch_rows(batch_size, self.mesh, even=False))
+        rows = None if self.mesh is None else (lo, hi)
         for batch in self.dataset.batches(batch_size, shuffle=False,
-                                          include_feats=self.bank is None):
+                                          include_feats=self.bank is None, feat_rows=rows):
             if self.bank is not None:
-                feats = self.bank[torch.from_numpy(batch.rows).to(self.device, torch.long)]
+                idx = torch.from_numpy(batch.rows[lo:hi]).to(self.device, torch.long)
+                feats = self.bank[idx]
             else:
                 feats = torch.from_numpy(batch.feats).to(self.device)
+            if lo == hi:        # no rows here (nor on this rank's model group)
+                continue
             out = decode(feats).cpu().numpy()
-            for row, vid in enumerate(batch.ids):
-                if batch.valid[row] == 0.0 or not vid:
+            for row, vid in enumerate(batch.ids[lo:hi]):
+                if batch.valid[lo + row] == 0.0 or not vid:
                     continue
                 preds[vid] = ids_to_sentence(out[row], self.dataset.ix2word, self.eos_ix,
                                              sos_ix=sos_ix, pad_ix=self.pad_ix)
+        if self.mesh is not None:
+            parts = [None] * mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS)
+            dist.all_gather_object(parts, preds,
+                                   group=self.mesh.get_group(mesh_lib.DATA_AXIS))
+            preds = {vid: sent for part in parts for vid, sent in part.items()}
         return preds
 
     def greedy(self, batch_size: int = 10) -> Dict[str, str]:
@@ -87,11 +111,12 @@ class CaptionDecoder:
 def model_from_checkpoint(checkpoint_path: str, real_vocab: int,
                           device=None) -> Tuple[Opt, Model]:
     """Rebuild (opt, model) from a checkpoint directory, weights loaded and
-    the model on ``device``."""
+    the model on ``device``. The checkpoint holds whole tensors whatever
+    mesh trained it, so the model is whole."""
     dev = resolve_device(device)
     cfg = load_config(checkpoint_path)
     opt = Opt(**cfg) if cfg else Opt()
-    vocab = pad_to_multiple(real_vocab, opt.vocab_pad_multiple)
+    vocab = mesh_lib.pad_to_multiple(real_vocab, opt.vocab_pad_multiple)
     model = build_model(opt, vocab, valid_vocab=real_vocab)
     model.load_state_dict(params_from_jax(load_checkpoint(checkpoint_path)))
     return opt, model.to(dev).eval()
@@ -102,17 +127,22 @@ def _decoder_from_checkpoint(checkpoint_path: str, captions_file: Optional[str],
                              **kw) -> CaptionDecoder:
     """The checkpoint's model and its ``mode`` split in a decoder on
     ``device``; beam settings from ``kw``, else from the checkpoint's opt.
-    ``opt.mesh_shape`` is not read: decoding runs on one device."""
+    An ``opt.mesh_shape`` other than (1, 1) builds that mesh, as JAX's
+    does (``make_mesh`` raises where the world size does not fit)."""
     dev = resolve_device(device)
     cfg = load_config(checkpoint_path)
     opt = Opt(**cfg) if cfg else Opt()
     ds = VideoDataset(captions_file or opt.caption_file, feats_path or opt.feats_path,
                       max_len=opt.train_length, mode=mode, seed=opt.seed)
     opt, model = model_from_checkpoint(checkpoint_path, ds.vocab_size, dev)
+    mesh = None
+    if tuple(opt.mesh_shape) != (1, 1):
+        mesh = mesh_lib.make_mesh(tuple(opt.mesh_shape), dev)
     return CaptionDecoder(model, ds, dev,
                           beam_width=kw.get("beam_width", opt.beam_width),
                           max_beam_depth=kw.get("max_beam_depth", opt.max_beam_depth),
-                          beam_score_mode=kw.get("beam_score_mode", opt.beam_score_mode))
+                          beam_score_mode=kw.get("beam_score_mode", opt.beam_score_mode),
+                          mesh=mesh)
 
 
 def greedy_eval(checkpoint_path: str, captions_file: str = None, feats_path: str = None,

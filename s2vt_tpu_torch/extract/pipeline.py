@@ -15,9 +15,10 @@ extract_features.py:113-143):
    device forwards the current one.
 
 With ``use_pallas`` (the default) VGG16's conv blocks run the fused conv
-kernel (``ops/fused_conv.py``). Extraction runs on one device: the ``mesh``
-argument of the JAX extractor (data-parallel over a device mesh) is not
-ported yet and raises.
+kernel (``ops/fused_conv.py``). With a mesh (``parallel/mesh.py``) extraction
+is data-parallel, as JAX's: each data rank forwards its share of the frames
+and the features are all-gathered in order, on every rank; ``extract``
+writes the files from rank 0.
 """
 
 from __future__ import annotations
@@ -27,11 +28,14 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s2vt_tpu_torch.extract import video as video_lib
 from s2vt_tpu_torch.extract.backbones import build_backbone
 from s2vt_tpu_torch.extract.preprocess import (fix_sample_indices, free_sample_indices,
                                                preprocess_frames)
+from s2vt_tpu_torch.parallel import mesh as mesh_lib
+from s2vt_tpu_torch.parallel.distributed import process_index
 from s2vt_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -39,14 +43,14 @@ _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 class FeatureExtractor:
     """The backbone, built once on ``device`` (default: the CUDA card), and
-    the frames -> features function."""
+    the frames -> features function. ``mesh``: a (data, model) ``DeviceMesh``
+    over which the frames are split (the frame count must divide by the
+    data axis); the backbone is replicated."""
 
     def __init__(self, model_name: str = "vgg16", weights: Optional[str] = None,
                  compute_dtype: Optional[str] = None, bucket: int = 16, mesh=None,
                  use_pallas: bool = True, device=None):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel extraction over a device mesh is not "
-                                      "ported yet; extract on one device (mesh=None)")
+        self.mesh = mesh
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be None, 'float32' or 'bfloat16', got "
                              f"{compute_dtype!r}")
@@ -63,16 +67,38 @@ class FeatureExtractor:
         self.bucket = bucket
 
     @torch.no_grad()
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """uint8 frames [T, H, W, 3] on the device -> features [T, feat_dim]."""
+    def _features(self, frames: torch.Tensor) -> torch.Tensor:
         x = preprocess_frames(frames, self.spec["mean"], self.spec["std"],
                               self.spec["input_size"])
         return self.model(x)
 
+    def _gathered(self, feats: torch.Tensor) -> torch.Tensor:
+        """The data ranks' features in rank order (``feats`` without a mesh)."""
+        if self.mesh is None:
+            return feats
+        parts = [torch.empty_like(feats)
+                 for _ in range(mesh_lib.axis_size(self.mesh, mesh_lib.DATA_AXIS))]
+        dist.all_gather(parts, feats.contiguous(),
+                        group=self.mesh.get_group(mesh_lib.DATA_AXIS))
+        return torch.cat(parts)
+
+    def _rows(self, n: int) -> slice:
+        """This data rank's frames of ``n``."""
+        return slice(0, n) if self.mesh is None else slice(*mesh_lib.batch_rows(n, self.mesh))
+
+    @torch.no_grad()
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """uint8 frames [T, H, W, 3] on the device -> features [T, feat_dim].
+        With a mesh, this data rank forwards its frames and the ranks'
+        features are gathered in order."""
+        return self._gathered(self._features(frames[self._rows(frames.shape[0])]))
+
     def __call__(self, frames: np.ndarray, valid_count: Optional[int] = None) -> np.ndarray:
         """uint8 frames [T, H, W, 3] -> features [T, feat_dim] float32 (or
-        [valid_count, feat_dim] when the batch was padded)."""
-        feats = self.forward(torch.from_numpy(np.ascontiguousarray(frames)).to(self.device))
+        [valid_count, feat_dim] when the batch was padded). With a mesh only
+        this rank's frames are uploaded."""
+        local = np.ascontiguousarray(frames[self._rows(len(frames))])
+        feats = self._gathered(self._features(torch.from_numpy(local).to(self.device)))
         feats = feats.float().cpu().numpy()
         return feats if valid_count is None else feats[:valid_count]
 
@@ -96,27 +122,34 @@ def extract(video_path: str, feats_path: str, model: str = "vgg16", mode: str = 
             frames_num: int = 80, interval: int = 10, weights: Optional[str] = None,
             compute_dtype: Optional[str] = None, overwrite: bool = True,
             clips: Optional[Iterable[pathlib.Path]] = None, clip_batch: int = 4,
-            device=None) -> int:
+            device=None, mesh=None) -> int:
     """Extract features for every clip under ``video_path``; returns the
     count. Each clip's features go to ``{feats_path}/{clip_stem}.npy``
-    ([T, feat_dim]), as the reference's CLI writes them."""
+    ([T, feat_dim]), as the reference's CLI writes them. With ``mesh`` every
+    rank calls it, the frames of each forward are split over the data
+    ranks, and rank 0 writes the files."""
     feats_dir = pathlib.Path(feats_path)
-    if overwrite and feats_dir.is_dir():
+    writes = process_index() == 0
+    if overwrite and feats_dir.is_dir() and writes:
         import shutil
         shutil.rmtree(feats_dir)
-    feats_dir.mkdir(parents=True, exist_ok=True)
+    if writes:
+        feats_dir.mkdir(parents=True, exist_ok=True)
+
+    def save(clip, feats):
+        if writes:
+            np.save(feats_dir / f"{clip.stem}.npy", feats)
 
     src = pathlib.Path(video_path)
     if clips is None:
         clips = sorted(p for p in src.iterdir()
                        if p.is_dir() or p.suffix.lower() in video_lib.VIDEO_SUFFIXES)
     clips = list(clips)
-    extractor = FeatureExtractor(model, weights, compute_dtype, device=device)
+    extractor = FeatureExtractor(model, weights, compute_dtype, device=device, mesh=mesh)
 
     if mode != "fix" or clip_batch <= 1:
         for clip in clips:
-            np.save(feats_dir / f"{clip.stem}.npy",
-                    extractor.extract_clip(str(clip), mode, frames_num, interval))
+            save(clip, extractor.extract_clip(str(clip), mode, frames_num, interval))
         return len(clips)
 
     from concurrent.futures import ThreadPoolExecutor
@@ -140,5 +173,5 @@ def extract(video_path: str, feats_path: str, model: str = "vgg16", mode: str = 
             else:  # mixed raw resolutions: forward per clip
                 per_clip = [extractor(f) for f in frames_list]
             for clip, feats in zip(group, per_clip):
-                np.save(feats_dir / f"{clip.stem}.npy", feats)
+                save(clip, feats)
     return len(clips)

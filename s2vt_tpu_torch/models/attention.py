@@ -20,6 +20,11 @@ Routes of ``teacher_forced``, chosen by mode, not by failure:
    shape gate refuses, it raises;
  - otherwise the loop runs step by step in PyTorch: the kernel has no
    backward (nor has its TPU counterpart) and implements softmax only.
+
+With its vocab split over a mesh's model axis (``vocab_shard``, set by
+``parallel/vocab.py::shard_model_``), the embedding lookups, the
+out-projection, the greedy pick and the beam step's logits go through the
+vocab-parallel operators, as in S2VT.
 """
 
 from __future__ import annotations
@@ -31,9 +36,9 @@ from torch import nn
 
 from s2vt_tpu_torch.models import beam as beam_mod
 from s2vt_tpu_torch.ops.fused_decode import greedy_pick
-from s2vt_tpu_torch.ops.layers import (TorchEmbedding, TorchLinear, apply_linear,
-                                       dropout, mask_invalid_vocab)
+from s2vt_tpu_torch.ops.layers import TorchEmbedding, TorchLinear, apply_linear, dropout
 from s2vt_tpu_torch.ops.rnn import LSTMState, TorchRNN, input_projection, multilayer_step
+from s2vt_tpu_torch.parallel import vocab as vocab_par
 
 ATT_MODES = ("softmax", "reference_sum")
 
@@ -65,6 +70,7 @@ class AttBaseline(nn.Module):
         self.att_enc = TorchLinear(dim_hid, 2 * dim_hid, compute_dtype=cdt)
         self.att_prev_hid = TorchLinear(dim_hid, dim_hid, compute_dtype=cdt)
         self.att_apply = TorchLinear(1, dim_hid, use_bias=False, compute_dtype=cdt)
+        self.vocab_shard: Optional[vocab_par.VocabShard] = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Torch's default init for every submodule, drawn from ``generator``."""
@@ -74,6 +80,20 @@ class AttBaseline(nn.Module):
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(*shape, dtype=torch.float32, device=self.feat_linear.weight.device)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Embeddings of global token ids (row 0, the padding, gets no
+        gradient), from this rank's rows with a shard."""
+        if self.vocab_shard is None:
+            return self.embedding(ids)
+        return vocab_par.embed(ids, self.embedding.weight, self.vocab_shard,
+                               self.embedding.padding_idx)
+
+    def _lookup(self, word: torch.Tensor) -> torch.Tensor:
+        """A decode step's embeddings (no gradient)."""
+        if self.vocab_shard is None:
+            return self.embedding.weight[word]
+        return vocab_par.embed(word, self.embedding.weight, self.vocab_shard)
 
     def _attention(self, enc_out, enc_wh, h):
         """context [B, 2H] from enc_out [B, L, 2H], enc_wh = att_enc(enc_out)
@@ -145,7 +165,7 @@ class AttBaseline(nn.Module):
         """Teacher forcing over the L-1 target steps. feats [B, L, F];
         targets [B, L-1] token ids. Returns logits [B, L-1, V]."""
         enc_out, enc_wh, context = self._encode(feats, deterministic, generator)
-        embed = self.embedding(targets)                                # [B, L-1, E]
+        embed = self._embed(targets)                                   # [B, L-1, E]
         if self._kernel_route():
             hs = self._decode_kernel(embed, enc_out, enc_wh, context)
         else:
@@ -156,12 +176,14 @@ class AttBaseline(nn.Module):
                 outs.append(h)
             hs = torch.stack(outs, dim=1)                              # [B, L-1, H]
         hs = dropout(hs, self.out_dropout, generator, deterministic)
+        if self.vocab_shard is not None:
+            hs = vocab_par.to_vocab_shards(hs, self.vocab_shard)
         return self.out_linear(hs)
 
     def _logits(self, h):
-        logits = apply_linear(h, self.out_linear.weight, self.out_linear.bias,
-                              self.compute_dtype)
-        return mask_invalid_vocab(logits, self.valid_vocab)
+        """This rank's logit columns of a decode step (all of them without a
+        shard), before the pad-vocab mask."""
+        return apply_linear(h, self.out_linear.weight, self.out_linear.bias, self.compute_dtype)
 
     @torch.no_grad()
     def greedy(self, feats) -> torch.Tensor:
@@ -170,12 +192,13 @@ class AttBaseline(nn.Module):
         z = self._zeros(feats.shape[0], self.dim_hid)
         state = LSTMState(z, z)
         word = torch.full((feats.shape[0],), self.sos_ix, dtype=torch.long, device=feats.device)
-        pick = greedy_pick(self.out_linear.weight, self.out_linear.bias, self.valid_vocab,
-                           self.compute_dtype, self.use_pallas)
+        args = (self.out_linear.weight, self.out_linear.bias, self.valid_vocab,
+                self.compute_dtype, self.use_pallas)
+        pick = (greedy_pick(*args) if self.vocab_shard is None
+                else vocab_par.greedy_pick(*args, self.vocab_shard))
         tokens = []
         for _ in range(self.length):
-            state, h, context = self._step(state, context, self.embedding.weight[word],
-                                           enc_out, enc_wh)
+            state, h, context = self._step(state, context, self._lookup(word), enc_out, enc_wh)
             word = pick(h)                                             # first max wins
             tokens.append(word)
         return torch.stack(tokens, dim=1).to(torch.int32)
@@ -193,8 +216,9 @@ class AttBaseline(nn.Module):
         enc_wh_t = enc_wh.repeat_interleave(beam_width, dim=0)
 
         def step_fn(states, word):
-            state, h, ctx = self._step(*states, self.embedding.weight[word], enc_out_t, enc_wh_t)
-            return (state, ctx), torch.log_softmax(self._logits(h).float(), dim=-1)
+            state, h, ctx = self._step(*states, self._lookup(word), enc_out_t, enc_wh_t)
+            return (state, ctx), vocab_par.step_log_probs(h, self._logits, self.valid_vocab,
+                                                          self.vocab_shard)
 
         return beam_mod.beam_search(
             step_fn, (LSTMState(z, z), context), sos_ix=self.sos_ix, eos_ix=self.eos_ix,

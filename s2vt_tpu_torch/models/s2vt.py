@@ -16,6 +16,12 @@ do not apply (``num_layers > 1``, ``rnn_type='gru'``, and the beam encode
 over the raw L steps), ``vid_rnn`` and ``word_rnn`` run each layer through
 the per-layer sequence kernels (``ops/fused_rnn.py`` for an LSTM,
 ``ops/fused_gru.py`` for a GRU).
+
+With its vocab split over a mesh's model axis (``parallel/vocab.py::
+shard_model_`` sets ``vocab_shard``), the embedding lookups, the
+out-projection, the greedy pick and the beam step's logits go through the
+vocab-parallel operators; ``teacher_forced`` then returns this rank's logit
+columns [B, L-1, V/tp]. Without a shard the code is the one-device code.
 """
 
 from __future__ import annotations
@@ -27,9 +33,9 @@ from torch import nn
 
 from s2vt_tpu_torch.models import beam as beam_mod
 from s2vt_tpu_torch.ops.fused_decode import greedy_pick
-from s2vt_tpu_torch.ops.layers import (TorchEmbedding, TorchLinear, apply_linear,
-                                       dropout, mask_invalid_vocab)
+from s2vt_tpu_torch.ops.layers import TorchEmbedding, TorchLinear, apply_linear, dropout
 from s2vt_tpu_torch.ops.rnn import LSTMState, TorchRNN, input_projection, multilayer_step
+from s2vt_tpu_torch.parallel import vocab as vocab_par
 
 
 class S2VT(nn.Module):
@@ -60,6 +66,7 @@ class S2VT(nn.Module):
         self.feat_linear = TorchLinear(dim_hid, feat_dim, compute_dtype=compute_dtype)
         self.out_linear = TorchLinear(vocab_size, dim_hid, compute_dtype=compute_dtype)
         self.embedding = TorchEmbedding(vocab_size, dim_embed)
+        self.vocab_shard: Optional[vocab_par.VocabShard] = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Torch's default init for every submodule, drawn from ``generator``."""
@@ -73,6 +80,26 @@ class S2VT(nn.Module):
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(*shape, dtype=torch.float32, device=self.feat_linear.weight.device)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Embeddings of global token ids, from this rank's rows with a shard."""
+        if self.vocab_shard is None:
+            return self.embedding(ids)
+        return vocab_par.embed(ids, self.embedding.weight, self.vocab_shard)
+
+    def _out(self, h: torch.Tensor) -> torch.Tensor:
+        """The out-projection: this rank's logit columns with a shard."""
+        if self.vocab_shard is not None:
+            h = vocab_par.to_vocab_shards(h, self.vocab_shard)
+        return self.out_linear(h)
+
+    def _pick(self):
+        """The greedy step's token picker, h [B, H] -> ids [B]."""
+        args = (self.out_linear.weight, self.out_linear.bias, self.valid_vocab,
+                self.compute_dtype, self.use_pallas)
+        if self.vocab_shard is None:
+            return greedy_pick(*args)
+        return vocab_par.greedy_pick(*args, self.vocab_shard)
 
     def _project_feats(self, feats, deterministic, generator=None):
         """feat_drop -> feat_linear (S2VTModel.py:52-54)."""
@@ -145,7 +172,7 @@ class S2VT(nn.Module):
         """
         B = feats.shape[0]
         feats = self._project_feats(feats, deterministic, generator)
-        embed = self.embedding(targets)                               # [B, L-1, E]
+        embed = self._embed(targets)                                  # [B, L-1, E]
         pad_embed = torch.cat([self._zeros(B, self.length, self.dim_embed), embed], dim=1)
         if self._fused_ok():
             from s2vt_tpu_torch.ops.fused_s2vt import s2vt_fused_out2
@@ -159,7 +186,7 @@ class S2VT(nn.Module):
                                        generator=generator)
             result = output2[:, self.length:, :]                      # [B, L-1, H]
         result = dropout(result, self.out_dropout, generator, deterministic)
-        return self.out_linear(result)
+        return self._out(result)
 
     @torch.no_grad()
     def greedy(self, feats, early_stop: bool = False) -> torch.Tensor:
@@ -192,16 +219,12 @@ class S2VT(nn.Module):
             input2 = torch.cat([enc_pad, output1[:, :self.length, :]], dim=-1)
             _, states2 = self.word_rnn(input2, deterministic=True)
 
-        emb_table = self.embedding.weight
         word_layers = self.word_rnn.layers
-        out_w, out_b = self.out_linear.weight, self.out_linear.bias
         vid_tail = output1[:, self.length:, :].transpose(0, 1)        # [L-1, B, H]
-
-        pick = greedy_pick(out_w, out_b, self.valid_vocab, self.compute_dtype,
-                           self.use_pallas)
+        pick = self._pick()
 
         def decode_one(states, word, vid_out_t):
-            x = torch.cat([emb_table[word], vid_out_t], dim=-1)       # [B, E+H]
+            x = torch.cat([self._lookup(word), vid_out_t], dim=-1)    # [B, E+H]
             states, h = multilayer_step(states, x, word_layers, self.rnn_type,
                                         self.compute_dtype)
             return states, pick(h)
@@ -222,6 +245,12 @@ class S2VT(nn.Module):
                 tokens[t] = word
         return tokens.transpose(0, 1).to(torch.int32)                 # [B, L-1]
 
+    def _lookup(self, word: torch.Tensor) -> torch.Tensor:
+        """A decode step's embeddings (no gradient)."""
+        if self.vocab_shard is None:
+            return self.embedding.weight[word]
+        return vocab_par.embed(word, self.embedding.weight, self.vocab_shard)
+
     @torch.no_grad()
     def encode_for_beam(self, feats):
         """Beam-mode encoding (S2VTModel.py:56-60): vid_rnn over the RAW L
@@ -241,9 +270,11 @@ class S2VT(nn.Module):
              score_mode: str = "cumulative") -> beam_mod.BeamResult:
         """Batched fixed-shape beam search (vs S2VTModel.py:149-269)."""
         states1, states2 = self.encode_for_beam(feats)
-        emb_table = self.embedding.weight
         vid_layers, word_layers = self.vid_rnn.layers, self.word_rnn.layers
         out_w, out_b = self.out_linear.weight, self.out_linear.bias
+
+        def logits_fn(h):
+            return apply_linear(h, out_w, out_b, self.compute_dtype)
 
         def step_fn(states, word):
             """(states1, states2), word ids [N] -> new states, log-probs [N, V].
@@ -252,11 +283,10 @@ class S2VT(nn.Module):
             st1, st2 = states
             st1, vid_out = multilayer_step(st1, self._zeros(word.shape[0], self.dim_hid),
                                            vid_layers, self.rnn_type, self.compute_dtype)
-            x = torch.cat([emb_table[word], vid_out], dim=-1)
+            x = torch.cat([self._lookup(word), vid_out], dim=-1)
             st2, h = multilayer_step(st2, x, word_layers, self.rnn_type, self.compute_dtype)
-            logits = apply_linear(h, out_w, out_b, self.compute_dtype)
-            logits = mask_invalid_vocab(logits, self.valid_vocab)
-            return (st1, st2), torch.log_softmax(logits.float(), dim=-1)
+            return (st1, st2), vocab_par.step_log_probs(h, logits_fn, self.valid_vocab,
+                                                        self.vocab_shard)
 
         return beam_mod.beam_search(
             step_fn, (states1, states2), sos_ix=self.sos_ix, eos_ix=self.eos_ix,

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +38,7 @@ from s2vt_tpu_torch.ops.layers import apply_linear, mask_invalid_vocab
 
 _LIB_NAME = "argmax_linear"
 _ENTRY = {"mma": "argmax_linear_mma", "direct": "argmax_linear"}
+_VALUE_ENTRY = {"mma": "argmax_linear_mma_value", "direct": "argmax_linear_value"}
 
 
 def _check_args(h, weight, bias):
@@ -56,14 +58,22 @@ def _check_args(h, weight, bias):
 
 @torch.no_grad()
 def argmax_linear_reference(h, weight, bias, valid_vocab: Optional[int] = None,
-                            compute_bf16: bool = False) -> torch.Tensor:
+                            compute_bf16: bool = False, with_value: bool = False):
     """Plain PyTorch version of the kernel: the logits through ``apply_linear``
     and ``mask_invalid_vocab``, then ``torch.argmax`` (first maximum). h [B, H]
     and bias [V] float32, weight [V, H] float32 or bf16 (its values, widened
-    exactly). Returns int64 [B]."""
+    exactly). Returns int64 [B]; ``with_value``: (int64 [B], float32 [B]), the
+    tokens and their logits, -inf where the token is a masked column (every
+    row, when ``valid_vocab`` is 0)."""
     _check_args(h, weight, bias)
     logits = apply_linear(h, weight, bias, torch.bfloat16 if compute_bf16 else None)
-    return torch.argmax(mask_invalid_vocab(logits, valid_vocab), dim=-1)
+    idx = torch.argmax(mask_invalid_vocab(logits, valid_vocab), dim=-1)
+    if not with_value:
+        return idx
+    val = logits.gather(1, idx[:, None])[:, 0]
+    if valid_vocab is not None:
+        val = torch.where(idx < valid_vocab, val, torch.full_like(val, -math.inf))
+    return idx, val
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,6 +83,9 @@ def _kernel_lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for entry in _ENTRY.values():
         getattr(lib, entry).argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        getattr(lib, entry).restype = ci
+    for entry in _VALUE_ENTRY.values():
+        getattr(lib, entry).argtypes = [vp] * 8 + [ci] * 6 + [vp]
         getattr(lib, entry).restype = ci
     lib.argmax_linear_vocab_tiles.argtypes = [ci, ci]
     lib.argmax_linear_vocab_tiles.restype = ci
@@ -132,9 +145,9 @@ def argmax_linear_ok(batch, hidden: int, vocab: int,
     return _kernel_lib().argmax_linear_smem_bytes(hidden) <= _build.smem_optin(device)
 
 
-def _argmax_linear_impl(h, weight, bias, valid_vocab, compute_bf16):
+def _argmax_linear_impl(h, weight, bias, valid_vocab, compute_bf16, with_value=False):
     if h.device.type == "cpu":
-        return argmax_linear_reference(h, weight, bias, valid_vocab, compute_bf16)
+        return argmax_linear_reference(h, weight, bias, valid_vocab, compute_bf16, with_value)
     _check_args(h, weight, bias)
     _build.check_cuda("argmax_linear", (h, weight, bias))
     B, H = h.shape
@@ -142,13 +155,15 @@ def _argmax_linear_impl(h, weight, bias, valid_vocab, compute_bf16):
         raise ValueError(f"argmax_linear: hidden size {H} does not fit the kernel's shared "
                          f"memory on {h.device}")
     route = argmax_linear_route(H, weight.dtype, compute_bf16, (h.data_ptr(), weight.data_ptr()))
-    return _launch(h, weight, bias, valid_vocab, compute_bf16, route)
+    return _launch(h, weight, bias, valid_vocab, compute_bf16, route, with_value)
 
 
-def _launch(h, weight, bias, valid_vocab, compute_bf16, route):
+def _launch(h, weight, bias, valid_vocab, compute_bf16, route, with_value=False):
     """One launch of ``route``'s kernel on CUDA tensors checked by the
     operator (or, to time one route beside the other, by the caller). The
-    direct route reads W as float32: a bf16 W is widened (exactly) first."""
+    direct route reads W as float32: a bf16 W is widened (exactly) first.
+    ``with_value``: the launch that also writes each row's winning logit;
+    returns (tokens, values)."""
     if route == "direct" and weight.dtype != torch.float32:
         weight = weight.float()
     B, H = h.shape
@@ -161,12 +176,13 @@ def _launch(h, weight, bias, valid_vocab, compute_bf16, route):
     pidx = torch.empty(tiles, B, dtype=torch.int32, device=h.device)
     counter = _counter(h.device, -(-B // 16))
     valid = V if valid_vocab is None else max(0, min(int(valid_vocab), V))
-    _build.launch(lib, _ENTRY[route], "argmax_linear", (h, weight, bias, out, pmax, pidx,
-                                                       counter),
+    val = torch.empty(B, dtype=torch.float32, device=h.device) if with_value else None
+    _build.launch(lib, (_VALUE_ENTRY if with_value else _ENTRY)[route], "argmax_linear",
+                  (h, weight, bias, out, *([val] if with_value else []), pmax, pidx, counter),
                   (B, H, V, valid, int(compute_bf16)))
     argmax_linear.launches += 1
     argmax_linear.route_launches[route] += 1
-    return out
+    return (out, val) if with_value else out
 
 
 def _argmax_linear_fake(h, weight, bias, valid_vocab, compute_bf16):
@@ -193,6 +209,29 @@ argmax_linear.launches = 0
 argmax_linear.route_launches = {"mma": 0, "direct": 0}
 
 
+def argmax_linear_value(h, weight, bias, valid_vocab: Optional[int] = None,
+                        compute_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``argmax_linear`` that also gives each row's winning logit: (int64 [B],
+    float32 [B]), the value -inf where the token is a masked column (a vocab
+    shard with no valid column: ``valid_vocab`` 0). One launch of the same
+    kernel on CUDA tensors, counted in ``argmax_linear.launches`` and
+    ``route_launches``; the plain version (``with_value``) on CPU tensors.
+    Not an exported operator: a vocab-parallel decode (``parallel/vocab.py``)
+    calls it on its shard of W and merges the shards."""
+    _build.check_device("argmax_linear", h)
+    return _argmax_linear_impl(h, weight, bias, valid_vocab, compute_bf16, with_value=True)
+
+
+def pick_weight(out_w, compute_dtype):
+    """The W a greedy decode hands the kernel: in bf16, where the mma route
+    reads W as bf16, the weight rounded to bf16 once per decode (bit for bit
+    what each step would round); else ``out_w`` itself."""
+    if compute_dtype == torch.bfloat16 and argmax_linear_route(
+            out_w.shape[1], torch.bfloat16, True) == "mma":
+        return out_w.to(torch.bfloat16)
+    return out_w
+
+
 def greedy_pick(out_w, out_b, valid_vocab: Optional[int], compute_dtype, use_pallas: bool):
     """The token picker of a greedy step, h [B, H] -> ids [B]: with
     ``use_pallas``, one ``argmax_linear`` per step (on CPU tensors its plain
@@ -209,9 +248,7 @@ def greedy_pick(out_w, out_b, valid_vocab: Optional[int], compute_dtype, use_pal
                 f"{out_w.device}: a 32-row tile of h does not fit a block's shared memory; "
                 "build the model with use_pallas=False")
         bf16 = compute_dtype == torch.bfloat16
-        w = out_w
-        if bf16 and argmax_linear_route(out_w.shape[1], torch.bfloat16, True) == "mma":
-            w = out_w.to(torch.bfloat16)
+        w = pick_weight(out_w, compute_dtype)
         return lambda h: argmax_linear(h.contiguous(), w, out_b, valid_vocab, bf16)
 
     def plain(h):

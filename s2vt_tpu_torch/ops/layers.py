@@ -9,13 +9,33 @@ product, which is exact, so the only rounding is the cast itself.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
 NEG_INF = -1e30
+
+# (first row, rows) of the global batch that this rank's tensors hold, while
+# ``global_batch_rows`` is active.
+_BATCH_ROWS: contextvars.ContextVar[Optional[Tuple[int, int]]] = contextvars.ContextVar(
+    "batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_rows(first: int, rows: int) -> Iterator[None]:
+    """Within it, ``dropout`` draws each mask for the global batch of
+    ``rows`` rows and keeps this rank's rows ``first``.. of it, so that a
+    data-parallel step drops what the one-rank step over the global batch
+    drops."""
+    token = _BATCH_ROWS.set((first, rows))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS.reset(token)
 
 
 def mm_operand(x: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -47,11 +67,18 @@ def mask_invalid_vocab(logits: torch.Tensor, valid_vocab: Optional[int]) -> torc
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout (torch nn.Dropout semantics) drawing its mask from an
-    explicit generator, which may live on another device than ``x``."""
+    explicit generator, which may live on another device than ``x``. ``x``
+    is batch-major; under ``global_batch_rows`` the mask is drawn for the
+    global batch and sliced."""
     if deterministic or rate <= 0.0:
         return x
     gen_device = generator.device if generator is not None else x.device
-    keep = torch.rand(x.shape, generator=generator, device=gen_device).to(x.device)
+    part = _BATCH_ROWS.get()
+    shape = x.shape if part is None else (part[1],) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=gen_device)
+    if part is not None:
+        keep = keep[part[0]:part[0] + x.shape[0]]
+    keep = keep.to(x.device)
     keep = keep < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 

@@ -19,8 +19,14 @@ from __future__ import annotations
 import torch
 
 
-def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-token negative log-likelihood. logits [..., V], targets [...]."""
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor, shard=None) -> torch.Tensor:
+    """Per-token negative log-likelihood. logits [..., V], targets [...].
+    With a ``parallel/vocab.py::VocabShard``, ``logits`` are this rank's
+    columns [..., V/tp] and the log-normaliser and the target's logit are
+    taken over the model group (``parallel/vocab.py::token_nll``)."""
+    if shard is not None:
+        from s2vt_tpu_torch.parallel.vocab import token_nll
+        return token_nll(logits, targets, shard)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long().unsqueeze(-1)).squeeze(-1)

@@ -32,12 +32,22 @@ checkpoints), on one device:
  - With ``Opt.async_checkpoint`` the periodic and best checkpoints are
    written on a thread of their own from a device snapshot taken at the
    call (``training/checkpoint.py``); 'final' waits for them all.
+ - With a mesh (``parallel/mesh.py``; ``Opt.mesh_shape`` other than (1, 1)
+   builds one) the run is data- and vocab-parallel over
+   ``torch.distributed``: ``Opt.batch_size`` is the global batch, every
+   rank draws the same shuffle and takes its rows (and reads only their
+   files when streaming), dropout masks are drawn for the global batch and
+   sliced, gradients are summed over the data group, and the embedding and
+   out-projection are split over the model group (``parallel/vocab.py``).
+   A run equals the one-rank run at the same global batch. Rank 0 alone
+   writes checkpoints (whole tensors), logs and prints.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -47,15 +57,22 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s2vt_tpu_torch.config import Opt, save_opt
 from s2vt_tpu_torch.data.dataset import (Batch, VideoDataset, prefetch_to_device,
                                          read_ahead)
 from s2vt_tpu_torch.models.attention import AttBaseline
 from s2vt_tpu_torch.models.s2vt import S2VT
+from s2vt_tpu_torch.ops.layers import global_batch_rows
 from s2vt_tpu_torch.ops.losses import _token_nll
+from s2vt_tpu_torch.parallel import mesh as mesh_lib
+from s2vt_tpu_torch.parallel.distributed import process_index
+from s2vt_tpu_torch.parallel.mesh import pad_to_multiple
+from s2vt_tpu_torch.parallel.vocab import shard_model_
 from s2vt_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau
-from s2vt_tpu_torch.training.checkpoint import load_training_state, save_training_state
+from s2vt_tpu_torch.training.checkpoint import (load_training_state, save_training_state,
+                                                wait_for_saves)
 from s2vt_tpu_torch.utils.device import resolve_device
 from s2vt_tpu_torch.utils.weights import params_from_jax, unflatten_params
 
@@ -66,23 +83,29 @@ _BANK_CACHE: Dict[tuple, tuple] = {}
 
 
 def batch_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-               valid: torch.Tensor, masked: bool = True) -> torch.Tensor:
+               valid: torch.Tensor, masked: bool = True, shard=None,
+               data_group=None) -> torch.Tensor:
     """Sequence CE with per-sample ``valid`` weights (for padded last batches).
 
     masked=True: the intended masked-mean CE of MaskCriterion (utils.py:13-26).
     masked=False: the reference's effective loss (plain mean CE over all
     positions, pads included: the reduction='mean' bug, utils.py:11).
+
+    Data- and vocab-parallel: ``shard`` (a ``parallel/vocab.py::VocabShard``)
+    takes the CE over vocab-sharded logits; with ``data_group`` the rows are
+    this rank's part of the global batch and the weight sum is summed over
+    the group, so that the ranks' losses (and gradients) add up to the
+    global batch's.
     """
-    nll = _token_nll(logits, labels[:, 1:])
+    nll = _token_nll(logits, labels[:, 1:], shard)
     if masked:
         w = mask[:, 1:].float() * valid[:, None]
     else:
         w = valid[:, None].expand_as(nll)
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
-
-
-def pad_to_multiple(n: int, multiple: int) -> int:
-    return -(-n // multiple) * multiple
+    w_sum = w.sum()
+    if data_group is not None:
+        dist.all_reduce(w_sum, group=data_group)
+    return (nll * w).sum() / w_sum.clamp(min=1.0)
 
 
 Model = Union[S2VT, AttBaseline]
@@ -113,14 +136,6 @@ def build_model(opt: Opt, vocab_size: int, valid_vocab: Optional[int] = None) ->
     raise ValueError(f"unknown model {opt.model!r}")
 
 
-def _refuse_unported(opt: Opt) -> None:
-    """Options of the JAX Trainer that the port does not have yet raise here,
-    naming their ROADMAP.md item, instead of being skipped."""
-    if tuple(opt.mesh_shape) != (1, 1):
-        raise NotImplementedError(f"Trainer: mesh_shape={tuple(opt.mesh_shape)} is not ported "
-                                  f"yet (ROADMAP.md queue 1, item 6: parallel)")
-
-
 def _pinned(arr: np.ndarray) -> torch.Tensor:
     """A pinned host tensor holding ``arr``: the pinned tensor ``arr`` views
     (``Trainer._pinned_feats``), else a pinned copy."""
@@ -146,6 +161,13 @@ def _evict_stale_banks() -> None:
                 break
 
 
+def _broadcast_object(obj):
+    """Rank 0's ``obj`` on every rank of the default group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _dropout_seed(seed: int, epoch: int, step: int) -> int:
     """A generator seed for one train step, a function of (seed, epoch, step)."""
     return int(np.random.SeedSequence([seed, epoch, step]).generate_state(1, np.uint64)[0] >> 1)
@@ -154,14 +176,28 @@ def _dropout_seed(seed: int, epoch: int, step: int) -> int:
 class Trainer:
     """End-to-end training loop (the train() analog, train.py:56-179)."""
 
-    def __init__(self, opt: Opt, model: Optional[Model] = None,
+    def __init__(self, opt: Opt, mesh=None, model: Optional[Model] = None,
                  train_ds: Optional[VideoDataset] = None,
                  valid_ds: Optional[VideoDataset] = None, device=None, writer: Any = "auto"):
-        """``writer``: "auto" opens a tensorboardX ``SummaryWriter`` on
-        ``opt.log_dir`` where tensorboardX imports (else none), None writes
-        no logs, anything else is used as the writer."""
-        _refuse_unported(opt)
+        """``mesh``: a (data, model) ``DeviceMesh`` (``parallel/mesh.py::
+        make_mesh``) over the ranks of an initialized process group. None
+        with ``opt.mesh_shape`` (1, 1) is the one-device run, with no
+        process group; None with any other ``opt.mesh_shape`` builds that
+        mesh, and ``make_mesh`` raises where the world size does not fit.
+        (The JAX Trainer's ``mesh=None`` spreads over all local devices; on
+        a machine with one card the two are the same.) ``model``: a whole
+        model, split over the mesh here. ``writer``: "auto" opens a
+        tensorboardX ``SummaryWriter`` on ``opt.log_dir`` where tensorboardX
+        imports (else none), None writes no logs, anything else is used as
+        the writer; with a mesh, on rank 0 only."""
         self.device = resolve_device(device)
+        if mesh is None and tuple(opt.mesh_shape) != (1, 1):
+            mesh = mesh_lib.make_mesh(opt.mesh_shape, self.device)
+        self.mesh = mesh
+        self._rank0 = process_index() == 0
+        self._rows = None if mesh is None else mesh_lib.batch_rows(opt.batch_size, mesh)
+        self._data_group = (None if mesh is None
+                            else mesh.get_group(mesh_lib.DATA_AXIS))
         self.train_ds = train_ds or VideoDataset(
             opt.caption_file, opt.feats_path, max_len=opt.train_length, mode="train",
             seed=opt.seed)
@@ -171,6 +207,8 @@ class Trainer:
         # Special tokens come from the corpus, not the reference's hardcoded
         # 3/4 (S2VTModel.py:12).
         self.opt = opt = opt.replace(**self.train_ds.specials)
+        if mesh is not None:     # one checkpoint path on every rank
+            self.opt = opt = opt.replace(start_time=_broadcast_object(opt.start_time))
 
         if self.train_ds.feat_len != opt.train_length:
             raise ValueError(
@@ -189,6 +227,8 @@ class Trainer:
             from s2vt_tpu_torch.data.glove import warm_start_embedding
             warm_start_embedding(model, opt.glove_path, self.train_ds.word2ix, seed=opt.seed)
         self.model = model.to(self.device)
+        if mesh is not None:
+            shard_model_(self.model, mesh)
         # AdamW with these arguments is optax.adamw; with weight_decay 0 it is
         # Adam, the reference's optimizer (train.py:89-93). Torch's default
         # decay is 0.01, so the decay is always passed.
@@ -228,13 +268,21 @@ class Trainer:
         self._stop_requested = False
         self._metric_decoder = None
         self.metric_eval_ms: list = []   # per metric eval: {"decode": ms, "score": ms}
-        self.writer = self._make_writer() if writer == "auto" else writer
+        self._owns_writer = writer == "auto"
+        self.writer = None
+        if self._rank0:
+            self.writer = self._make_writer() if writer == "auto" else writer
+        self._logs = self.writer is not None
+        if mesh is not None:    # every rank takes part in the histograms' gathers
+            self._logs = _broadcast_object(self._logs)
 
     # ------------------------------------------------------------------
 
     def _upload(self, ds: VideoDataset) -> torch.Tensor:
-        """One split's features as a device tensor [N, L, feat_dim]."""
-        return torch.from_numpy(ds.load_all_features()).to(self.device, self._feat_dtype)
+        """One split's features as a device tensor [N, L, feat_dim], copied in
+        chunks (``parallel/mesh.py::device_put_chunked``)."""
+        return mesh_lib.device_put_chunked(ds.load_all_features(), self.device,
+                                           self._feat_dtype)
 
     def _bank_tensor(self, ds: VideoDataset, split: str) -> torch.Tensor:
         """One split's feature bank: uploaded, or with ``opt.feature_bank_cache``
@@ -274,7 +322,8 @@ class Trainer:
         dataset to write a streamed batch into. PyTorch's caching host
         allocator hands the block out again only after the copies that read
         it have finished."""
-        shape = (self.opt.batch_size, self.train_ds.feat_len, self.train_ds.feat_dim)
+        lo, hi = self._rows or (0, self.opt.batch_size)
+        shape = (hi - lo, self.train_ds.feat_len, self.train_ds.feat_dim)
         return torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
 
     def _batches(self, split: str, epoch: int):
@@ -286,7 +335,8 @@ class Trainer:
         alloc = self._pinned_feats if streamed and self._copy_stream is not None else None
         depth = self.opt.prefetch_depth
         batches = ds.batches(self.opt.batch_size, shuffle=None if split == "train" else False,
-                             epoch=epoch, include_feats=streamed, feats_alloc=alloc)
+                             epoch=epoch, include_feats=streamed, feats_alloc=alloc,
+                             feat_rows=self._rows)
         if streamed:
             batches = read_ahead(batches, depth - 1)
         return prefetch_to_device(batches, self._send, depth=depth)
@@ -295,18 +345,23 @@ class Trainer:
         """Start a host batch's copy to the device: labels, mask, valid and
         the bank rows or the streamed features. On the card the copies run
         from pinned memory on the Trainer's copy stream; returns the device
-        tensors and the event after them (None on the CPU)."""
+        tensors and the event after them (None on the CPU). With a mesh, the
+        rank's rows of the batch (streamed features are read for them only)."""
         dev, stream = self.device, self._copy_stream
-        x = batch.rows if self.use_feature_bank else batch.feats
+        labels, mask, valid, rows = batch.labels, batch.mask, batch.valid, batch.rows
+        if self._rows is not None:
+            lo, hi = self._rows
+            labels, mask, valid, rows = labels[lo:hi], mask[lo:hi], valid[lo:hi], rows[lo:hi]
+        x = rows if self.use_feature_bank else batch.feats
         x_dtype = torch.long if self.use_feature_bank else self._feat_dtype
         if stream is None:
-            return (torch.from_numpy(batch.labels).to(dev, torch.long),
-                    torch.from_numpy(batch.mask).to(dev), torch.from_numpy(batch.valid).to(dev),
+            return (torch.from_numpy(labels).to(dev, torch.long),
+                    torch.from_numpy(mask).to(dev), torch.from_numpy(valid).to(dev),
                     torch.from_numpy(x).to(dev, x_dtype)), None
         with torch.cuda.stream(stream):
-            sent = (_pinned(batch.labels).to(dev, non_blocking=True).long(),
-                    _pinned(batch.mask).to(dev, non_blocking=True),
-                    _pinned(batch.valid).to(dev, non_blocking=True),
+            sent = (_pinned(labels).to(dev, non_blocking=True).long(),
+                    _pinned(mask).to(dev, non_blocking=True),
+                    _pinned(valid).to(dev, non_blocking=True),
                     _pinned(x).to(dev, non_blocking=True).to(x_dtype))
             done = stream.record_event()
         return sent, done
@@ -333,15 +388,43 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
+    def _loss(self, logits, labels, mask, valid) -> torch.Tensor:
+        return batch_loss(logits, labels, mask, valid, masked=self.opt.masked_loss,
+                          shard=getattr(self.model, "vocab_shard", None),
+                          data_group=self._data_group)
+
+    def _global_rows(self):
+        """Dropout's view of the global batch: this rank's rows of it."""
+        if self._rows is None:
+            return contextlib.nullcontext()
+        return global_batch_rows(self._rows[0], self.opt.batch_size)
+
+    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group (itself without a mesh)."""
+        if self._data_group is not None:
+            dist.all_reduce(t, group=self._data_group)
+        return t
+
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over the data group, in one collective."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = self._sum_over_data(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
     def train_step(self, feats, labels, mask, valid,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward, loss, backward and one AdamW update. Returns the loss as a
-        device scalar (no host sync)."""
-        logits = self.model(feats, labels[:, :-1], mode="train", deterministic=False,
-                            generator=generator)
-        loss = batch_loss(logits, labels, mask, valid, masked=self.opt.masked_loss)
+        device scalar (no host sync); with a mesh, this rank's part of the
+        global batch's loss (the data group's parts sum to it)."""
+        with self._global_rows():
+            logits = self.model(feats, labels[:, :-1], mode="train", deterministic=False,
+                                generator=generator)
+        loss = self._loss(logits, labels, mask, valid)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self._reduce_grads()
         self.optimizer.step()
         return loss.detach()
 
@@ -354,7 +437,8 @@ class Trainer:
                 _dropout_seed(self.opt.seed, epoch, i))
             losses.append(self.train_step(*self._take(sent, "train"), generator=gen))
             clips += int(batch.valid.sum())
-        mean_loss = torch.stack(losses).mean().item()   # the epoch's one sync
+        # the epoch's one sync
+        mean_loss = self._sum_over_data(torch.stack(losses)).mean().item()
         return mean_loss, clips / max(time.time() - t0, 1e-9)
 
     @torch.no_grad()
@@ -365,11 +449,11 @@ class Trainer:
         for batch, sent in self._batches("valid", epoch):
             feats, labels, mask, valid = self._take(sent, "valid")
             logits = self.model(feats, labels[:, :-1], mode="train", deterministic=True)
-            losses.append(batch_loss(logits, labels, mask, valid,
-                                     masked=self.opt.masked_loss))
+            losses.append(self._loss(logits, labels, mask, valid))
             weights.append(float(batch.valid.sum()))
         w = np.asarray(weights)
-        return float(np.sum(torch.stack(losses).cpu().numpy() * w) / w.sum())
+        losses = self._sum_over_data(torch.stack(losses)).cpu().numpy()
+        return float(np.sum(losses * w) / w.sum())
 
     def fit(self, epochs: Optional[int] = None,
             on_epoch_end: Optional[Callable] = None) -> Dict[str, list]:
@@ -377,8 +461,9 @@ class Trainer:
         counting those of a restored checkpoint, or until early stopping or
         SIGTERM; then write the 'final' checkpoint."""
         opt = self.opt
-        os.makedirs(opt.save_path, exist_ok=True)
-        save_opt(opt, os.path.join(opt.save_path, opt.start_time + "opt.json"))
+        if self._rank0:
+            os.makedirs(opt.save_path, exist_ok=True)
+            save_opt(opt, os.path.join(opt.save_path, opt.start_time + "opt.json"))
         if opt.resume_path:
             self.restore(opt.resume_path)
         epochs = opt.EPOCHS if epochs is None else epochs
@@ -405,15 +490,26 @@ class Trainer:
             if registered:
                 signal.signal(signal.SIGTERM,
                               prev_handler if prev_handler is not None else signal.SIG_DFL)
-        if self.writer is not None:
-            self.writer.flush()
+        self._flush_writer()
         return self.history
+
+    def _flush_writer(self) -> None:
+        """Land every logged event: a writer the Trainer opened is closed
+        (tensorboardX's ``flush`` does not wait for the events still queued
+        for its writer thread; ``close`` does, and a later event opens a
+        new file), a writer it was given is flushed."""
+        if self.writer is None:
+            return
+        if self._owns_writer:
+            self.writer.close()
+        else:
+            self.writer.flush()
 
     def _fit_epochs(self, epochs: int, on_epoch_end: Optional[Callable]) -> None:
         opt = self.opt
         try:
             for epoch in range(self.epochs_done, epochs):
-                if opt.profile and epoch == 0:
+                if opt.profile and epoch == 0 and self._rank0:
                     from s2vt_tpu_torch.utils.profiling import trace
                     with trace(os.path.join(opt.log_dir, "profile")):
                         train_loss, cps = self.train_epoch(epoch)
@@ -436,7 +532,7 @@ class Trainer:
                     break
                 if epoch % opt.save_freq == 0:
                     self.save(str(epoch))
-                if self._stop_requested:
+                if self._stop_everywhere():
                     break
         except KeyboardInterrupt:
             # The reference saves and exits on Ctrl-C (train.py:170-175): fall
@@ -444,10 +540,21 @@ class Trainer:
             if self.writer is not None:
                 self.writer.flush()
 
+    def _stop_everywhere(self) -> bool:
+        """Whether a SIGTERM reached this rank (with a mesh: any rank, so
+        that every rank stops after the same epoch)."""
+        if self.mesh is None:
+            return self._stop_requested
+        flag = torch.tensor([float(self._stop_requested)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def _log_epoch(self, epoch: int, train_loss: float, valid_loss: float, lr: float) -> None:
         """The reference's scalar tags (train.py:131,149-150) and clips/s;
         every ``histogram_freq`` epochs a histogram per weight, named by its
         JAX parameter path (``vid_rnn/l0/w_ih``)."""
+        if self._logs and epoch % self.opt.histogram_freq == 0:
+            state = self._whole_state_dict()     # a collective with a mesh
         if self.writer is None:
             return
         self.writer.add_scalar("train_loss", train_loss, global_step=epoch)
@@ -456,16 +563,26 @@ class Trainer:
         self.writer.add_scalar("clips_per_sec", self.history["clips_per_sec"][-1],
                                global_step=epoch)
         if epoch % self.opt.histogram_freq == 0:
-            for key, val in sorted(self.model.state_dict().items()):
+            for key, val in sorted(state.items()):
                 self.writer.add_histogram(key.replace(".", "/"),
                                           val.detach().cpu().numpy(), epoch)
+
+    def _whole_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state_dict with the vocab leaves whole: gathered over
+        the model group where they are split (a collective)."""
+        sd = self.model.state_dict()
+        if self.mesh is None:
+            return sd
+        return mesh_lib.gather_state_dict(sd, self.mesh, self.vocab_size)
 
     def _metric_eval(self, epoch: int) -> Optional[dict]:
         """Greedy-decode the valid split at ``eval_batch_size`` and score it
         against ``opt.gts_file`` (BLEU-1..4, METEOR, ROUGE-L, CIDEr); the
         scores go into ``history["metrics"]`` with their epoch. Returns them,
         or None when the gts file is missing. The decoder is built once, over
-        the valid feature bank when the Trainer keeps one."""
+        the valid feature bank when the Trainer keeps one. With a mesh the
+        decode is split over the ranks (``CaptionDecoder``), rank 0 scores
+        the gathered captions and broadcasts the scores."""
         from s2vt_tpu_torch.evaluation.decode import CaptionDecoder
         from s2vt_tpu_torch.evaluation.scorer import score_predictions
 
@@ -476,11 +593,14 @@ class Trainer:
             return None
         if self._metric_decoder is None:
             self._metric_decoder = CaptionDecoder(self.model, self.valid_ds, self.device,
-                                                  feature_bank=self._bank.get("valid"))
+                                                  feature_bank=self._bank.get("valid"),
+                                                  mesh=self.mesh)
         t0 = time.perf_counter()
         preds = self._metric_decoder.greedy(self.opt.eval_batch_size)   # ends on the host
         t1 = time.perf_counter()
-        scores = score_predictions(preds, gts, verbose=False)
+        scores = score_predictions(preds, gts, verbose=False) if self._rank0 else None
+        if self.mesh is not None:
+            scores = _broadcast_object(scores)
         self.metric_eval_ms.append({"decode": (t1 - t0) * 1e3,
                                     "score": (time.perf_counter() - t1) * 1e3})
         self.history.setdefault("metrics", []).append({"epoch": epoch, **scores})
@@ -499,7 +619,10 @@ class Trainer:
         take = (lambda t: t.detach().clone()) if snapshot else (lambda t: t.detach())
 
         def tree(named):
-            return unflatten_params({k.replace(".", "//"): take(v) for k, v in named})
+            whole = dict(named)
+            if self.mesh is not None:     # the vocab leaves whole
+                whole = mesh_lib.gather_state_dict(whole, self.mesh, self.vocab_size)
+            return unflatten_params({k.replace(".", "//"): take(v) for k, v in whole.items()})
 
         moments = {"exp_avg": [], "exp_avg_sq": []}
         step = 0.0
@@ -518,7 +641,10 @@ class Trainer:
         unless ``opt.async_checkpoint`` (or ``blocking=False``): the write
         then runs on a thread of its own from a snapshot of the state taken
         now, and this returns at once. Either way it first waits for the
-        saves in flight and raises if one of them failed."""
+        saves in flight and raises if one of them failed. With a mesh every
+        rank calls it: the vocab leaves are gathered (at the snapshot), rank 0
+        writes whole tensors, and a blocking save returns on every rank once
+        the checkpoint has landed."""
         if blocking is None:
             blocking = not self.opt.async_checkpoint
         path = os.path.join(self.opt.save_path, self.opt.start_time + tag)
@@ -526,17 +652,26 @@ class Trainer:
                  "plateau": self.plateau.state_dict(), "early": self.early.state_dict()}
         with torch.no_grad():
             params, optim = self._state_trees(snapshot=not blocking)
-        return save_training_state(path, params, optim, state, self.opt.to_json(),
-                                   blocking=blocking)
+        if self._rank0:
+            path = save_training_state(path, params, optim, state, self.opt.to_json(),
+                                       blocking=blocking)
+        if self.mesh is not None and blocking:
+            dist.barrier()
+        return os.path.abspath(path)
 
     def restore(self, path: str) -> None:
         """Parameters, AdamW state, learning rate, callbacks and epoch count
-        from a checkpoint written by ``save``."""
+        from a checkpoint written by ``save``; with a mesh each rank takes
+        its shards of the whole tensors."""
+        if self.mesh is not None:       # rank 0's saves in flight land first
+            if self._rank0:
+                wait_for_saves()
+            dist.barrier()
         params, optim, state = load_training_state(path)
-        self.model.load_state_dict(params_from_jax(params))
+        self.model.load_state_dict(self._local(params_from_jax(params)))
         sd = self.optimizer.state_dict()
         step = float(optim["step"])
-        moments = {m: params_from_jax(optim[m]) for m in ("exp_avg", "exp_avg_sq")}
+        moments = {m: self._local(params_from_jax(optim[m])) for m in ("exp_avg", "exp_avg_sq")}
         sd["state"] = {i: {"step": torch.tensor(step), **{m: t[name] for m, t in moments.items()}}
                        for i, (name, _) in enumerate(self.model.named_parameters())
                        } if step > 0 else {}
@@ -545,3 +680,7 @@ class Trainer:
         self.plateau.load_state_dict(state["plateau"])
         self.early.load_state_dict(state["early"])
         self.epochs_done = state["epochs_done"]
+
+    def _local(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's shards of a whole state_dict (itself without a mesh)."""
+        return state if self.mesh is None else mesh_lib.shard_state_dict(state, self.mesh)

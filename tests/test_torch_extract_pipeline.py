@@ -1,7 +1,7 @@
 """The port's extraction pipeline (extract/pipeline.py, cli/extract.py) on
-frame directories, mirroring tests/test_extract_pipeline.py (without its
-mesh test: extraction over a device mesh is not ported and raises), with the
-``tiny`` backbone on the CPU. Features of the port's FeatureExtractor equal
+frame directories, mirroring tests/test_extract_pipeline.py (its mesh test,
+data-parallel extraction over gloo ranks, is tests/test_torch_parallel.py's),
+with the ``tiny`` backbone on the CPU. Features of the port's FeatureExtractor equal
 JAX's on carried weights within 1e-4 (the preprocessing's tolerance,
 tests/test_torch_extract.py); batched and per-clip forwards within 1e-6.
 """
@@ -110,10 +110,29 @@ def test_extract_overwrites(tmp_path):
     assert not (out / "stale.npy").exists()
 
 
+class _DataMesh:
+    """The part of a DeviceMesh that extraction reads: a data axis of
+    ``size`` ranks, this process at 0."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, size):
+        self.sizes = (size, 1)
+
+    def size(self, dim):
+        return self.sizes[dim]
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_extractor_refuses_a_mesh_a_bad_mode_and_a_missing_card(tmp_path):
+    """A mesh whose data axis does not divide the frame count is refused,
+    as JAX's sharded device_put refuses it."""
     src = _make_frame_dirs(tmp_path, n_clips=1, n_frames=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FeatureExtractor("tiny", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by the data axis 3"):
+        FeatureExtractor("tiny", mesh=_DataMesh(3), device="cpu")(
+            np.zeros((8, 16, 16, 3), np.uint8))
     with pytest.raises(ValueError, match="unknown mode"):
         FeatureExtractor("tiny", device="cpu").extract_clip(str(src / "clip00"), mode="every")
     if not torch.cuda.is_available():

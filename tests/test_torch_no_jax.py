@@ -49,7 +49,9 @@ REQUIRED = {
     "s2vt_tpu_torch.cli.eval", "s2vt_tpu_torch.tools.learning_gate",
     "s2vt_tpu_torch.data.corpus", "s2vt_tpu_torch.data.native_loader",
     "s2vt_tpu_torch.data.glove", "s2vt_tpu_torch.cli.prepare",
-    "s2vt_tpu_torch.utils.profiling",
+    "s2vt_tpu_torch.utils.profiling", "s2vt_tpu_torch.parallel",
+    "s2vt_tpu_torch.parallel.mesh", "s2vt_tpu_torch.parallel.distributed",
+    "s2vt_tpu_torch.parallel.vocab",
 }
 
 
