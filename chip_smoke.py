@@ -140,6 +140,16 @@ Phases; a failure in any of them exits non-zero before the result line:
               equal to the launch over the whole vocab on every row, tokens
               equal to argmax_linear, values within ATOL of the plain
               version; each shard launch's ms beside the whole vocab's.
+ 14. coco     the cocotools slice, on the card's host (no device work):
+              s2vt_mask built from s2vt_tpu_torch/native with this machine's
+              g++; the RLE ops (utils/mask.py) against numpy on seeded 480 x
+              640 masks (encode/decode, area, RLE strings, merge of 2-5
+              masks, iou with crowds, bbox_iou, frPoly of a rectangle =
+              frBbox); COCOeval for bbox, segm and keypoints with detections
+              equal to the ground truth (AP 1.0); evaluate + accumulate timed
+              for bbox and segm at 480 x 640 on 250 images, 20 categories,
+              ~7 ground truths and 100 detections an image (a synthetic set
+              of rectangles, not COCO's data).
 
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
 200} and two vocab sizes (in bf16 with a float32 W, direct route, and with a
@@ -165,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -2868,6 +2879,240 @@ def phase_parallel(torch, device, seed, hid, feat, length, vocab, card, reps=50)
     print(f"phase 13 (parallel): {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+# Phase 14: a synthetic set of rectangles at COCO's image size, with val2017's
+# ground-truth density (36,781 instances on 5,000 images, ~7.3 an image) and
+# results at COCOeval's maxDets, 100 an image, the most a detector's file is
+# scored on. Cut so that the two timed evaluations stay under 30 s on the
+# card's host: 250 images of val2017's 5,000, 20 categories of its 80.
+COCO_HW = (480, 640)
+COCO_TIMED = {"n_images": 250, "n_cats": 20, "gts": 7, "dets": 100}
+COCO_EXACT = {"n_images": 24, "n_cats": 5, "gts": 7, "dets": 0}
+
+
+def box_rle_counts(box, h: int, w: int):
+    """Column-major RLE counts of the filled integer box [x, y, bw, bh]
+    (inside the image, bh < h), written down without a mask."""
+    import numpy as np
+
+    x, y, bw, bh = box
+    counts = np.empty(2 * bw + 1, np.int64)
+    counts[0] = x * h + y
+    counts[1::2] = bh
+    counts[2::2] = h - bh
+    counts[-1] = h * w - counts[0] - bw * bh - (bw - 1) * (h - bh)
+    return counts
+
+
+def coco_set(seed: int, n_images: int, n_cats: int, gts: int, dets: int, hw=COCO_HW):
+    """A seeded COCO-format instance set at ``hw``: ~``gts`` ground truths
+    an image (integer boxes with their rectangle polygons and 17 labelled
+    keypoints, every eighth a crowd given as compressed RLE), and results
+    for bbox and segm at ~``dets`` an image (each ground truth detected once
+    or twice with jitter, the rest false positives; scores drawn with ties;
+    segm results as compressed RLE strings, as detectors write them). With
+    ``dets == 0`` every non-crowd ground truth is detected as itself."""
+    import numpy as np
+
+    from s2vt_tpu_torch.utils import mask
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    cats = [{"id": 1 + 2 * c, "name": f"class{c}", "supercategory": f"super{c % 4}"}
+            for c in range(n_cats)]
+    images = [{"id": 1000 + i, "height": h, "width": w, "file_name": f"{1000 + i}.jpg"}
+              for i in range(n_images)]
+
+    def box():
+        bw, bh = int(rng.integers(4, w // 3)), int(rng.integers(4, h // 3))
+        return [int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh)), bw, bh]
+
+    def rle_string(b):
+        return mask.toString({"size": [h, w], "counts": box_rle_counts(b, h, w)}).decode()
+
+    anns, bbox_res, segm_res, kp_res = [], [], [], []
+    for i, img in enumerate(images):
+        n_gt = int(rng.integers(1, 2 * gts))
+        for _ in range(n_gt):
+            x, y, bw, bh = b = box()
+            crowd = len(anns) % 8 == 7
+            kp = np.stack([x + rng.random(17) * bw, y + rng.random(17) * bh,
+                           np.full(17, 2.0)], 1).round(2).reshape(-1).tolist()
+            ann = {"id": 1 + len(anns), "image_id": img["id"],
+                   "category_id": cats[int(rng.integers(n_cats))]["id"], "bbox": b,
+                   "area": float(bw * bh), "iscrowd": int(crowd), "keypoints": kp,
+                   "num_keypoints": 17,
+                   "segmentation": ({"size": [h, w], "counts": rle_string(b)} if crowd else
+                                    [[x, y, x + bw, y, x + bw, y + bh, x, y + bh]])}
+            anns.append(ann)
+            if dets == 0:
+                if not crowd:
+                    for res, key in ((bbox_res, "bbox"), (segm_res, "segmentation"),
+                                     (kp_res, "keypoints")):
+                        res.append({"image_id": img["id"], "category_id": ann["category_id"],
+                                    key: ann[key], "score": 0.5})
+                continue
+            for _ in range(int(rng.integers(1, 3))):
+                d = [min(max(v + int(rng.integers(-3, 4)), 0), lim) for v, lim in
+                     zip(b, (w - 8, h - 8, w, h))]
+                d[2], d[3] = max(min(d[2], w - d[0]), 1), max(min(d[3], h - d[1] - 1), 1)
+                cat = ann["category_id"] if rng.random() > 0.1 else \
+                    cats[int(rng.integers(n_cats))]["id"]
+                score = float(rng.choice((0.3, 0.5, 0.5, 0.7, 0.9)))
+                bbox_res.append({"image_id": img["id"], "category_id": cat, "bbox": d,
+                                 "score": score})
+                segm_res.append({"image_id": img["id"], "category_id": cat, "score": score,
+                                 "segmentation": {"size": [h, w], "counts": rle_string(d)}})
+        while dets and len(bbox_res) < dets * (i + 1):
+            b = box()
+            cat = cats[int(rng.integers(n_cats))]["id"]
+            score = float(rng.choice((0.1, 0.2, 0.3, 0.5)))
+            bbox_res.append({"image_id": img["id"], "category_id": cat, "bbox": b,
+                             "score": score})
+            segm_res.append({"image_id": img["id"], "category_id": cat, "score": score,
+                             "segmentation": {"size": [h, w], "counts": rle_string(b)}})
+    gt = {"info": {"description": f"seeded COCO-format set, seed {seed}"}, "images": images,
+          "categories": cats, "annotations": anns}
+    return gt, {"bbox": bbox_res, "segm": segm_res, "keypoints": kp_res}
+
+
+def coco_eval(gt_path: str, results: list, iou_type: str):
+    """COCO(gt_path).loadRes(results) -> COCOeval: evaluate() and
+    accumulate() (timed together, host clock), then summarize() with its
+    table captured. Returns (the evaluator, ms)."""
+    import copy
+
+    from s2vt_tpu_torch.cocotools import COCO, COCOeval
+
+    gt = COCO(gt_path)
+    E = COCOeval(gt, gt.loadRes(copy.deepcopy(results)), iouType=iou_type)
+    t0 = time.perf_counter()
+    E.evaluate()
+    E.accumulate()
+    ms = (time.perf_counter() - t0) * 1e3
+    with contextlib.redirect_stdout(io.StringIO()):
+        E.summarize()
+    return E, ms
+
+
+def phase_coco(seed, card, timed=COCO_TIMED, hw=COCO_HW):
+    """The cocotools slice on the card's host: build s2vt_mask with this
+    machine's g++; hold the RLE ops to numpy on seeded masks at ``hw``;
+    COCOeval for bbox, segm and keypoints with the detections equal to the
+    ground truth (AP 1.0); time evaluate + accumulate for bbox and segm on a
+    seeded set of ``timed``'s size. No device work; every miss raises."""
+    import numpy as np
+
+    from s2vt_tpu_torch.utils import mask, native_build
+
+    t_phase = time.perf_counter()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    lib = native_build.build_native("s2vt_mask")
+    mask._load()
+    print(f"coco: {lib.name} built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({gxx}; {' '.join(native_build.GXX_FLAGS)}) [{card}]", flush=True)
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    masks = {"empty": np.zeros(hw, np.uint8), "full": np.ones(hw, np.uint8),
+             "random": (rng.random(hw) > 0.5).astype(np.uint8),
+             "sparse": (rng.random(hw) > 0.999).astype(np.uint8)}
+    for i in range(6):
+        m = np.zeros(hw, np.uint8)
+        for _ in range(3):
+            y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+            m[y0:y0 + int(rng.integers(1, h)), x0:x0 + int(rng.integers(1, w))] = 1
+        masks[f"blocks{i}"] = m
+    rles = {}
+    for name, m in masks.items():
+        rle = rles[name] = mask.encode(m)
+        if not np.array_equal(mask.decode(rle), m) or mask.area(rle) != int(m.sum()):
+            raise SystemExit(f"coco: encode/decode/area of the {name} mask disagree with numpy")
+        back = mask.frString(mask.toString(rle), h, w)
+        if not np.array_equal(back["counts"], rle["counts"]):
+            raise SystemExit(f"coco: the {name} mask's RLE string does not round-trip")
+    names = sorted(masks)
+    for k in (2, 3, 5):
+        group = names[k:2 * k]
+        for intersect in (False, True):
+            want = masks[group[0]].astype(bool)
+            for n in group[1:]:
+                want = want & masks[n].astype(bool) if intersect else want | masks[n].astype(bool)
+            got = mask.decode(mask.merge([rles[n] for n in group], intersect=intersect))
+            if not np.array_equal(got, want.astype(np.uint8)):
+                raise SystemExit(f"coco: merge of {group} (intersect={intersect}) disagrees")
+    dts, gts = names[:5], names[4:]
+    crowd = [i % 2 for i in range(len(gts))]
+    got = mask.iou([rles[n] for n in dts], [rles[n] for n in gts], crowd)
+    for i, d in enumerate(dts):
+        for j, g in enumerate(gts):
+            a, b = masks[d].astype(bool), masks[g].astype(bool)
+            inter = float((a & b).sum())
+            denom = float(a.sum()) if crowd[j] else float((a | b).sum())
+            if got[i, j] != (inter / denom if denom > 0 else 0.0):
+                raise SystemExit(f"coco: iou({d}, {g}, crowd={crowd[j]}) = {got[i, j]!r} "
+                                 f"against numpy's {inter / max(denom, 1)!r}")
+    dt_b = np.concatenate([rng.integers(-40, w, (9, 2)), rng.integers(0, 300, (9, 2))], 1) / 2.0
+    gt_b = np.concatenate([rng.integers(-40, w, (7, 2)), rng.integers(0, 300, (7, 2))], 1) / 2.0
+    crowd = [int(c) for c in rng.integers(0, 2, 7)]
+    got = mask.bbox_iou(dt_b, gt_b, crowd)
+    x0 = np.maximum(dt_b[:, None, 0], gt_b[None, :, 0])
+    y0 = np.maximum(dt_b[:, None, 1], gt_b[None, :, 1])
+    x1 = np.minimum(dt_b[:, None, 0] + dt_b[:, None, 2], gt_b[None, :, 0] + gt_b[None, :, 2])
+    y1 = np.minimum(dt_b[:, None, 1] + dt_b[:, None, 3], gt_b[None, :, 1] + gt_b[None, :, 3])
+    inter = np.maximum(0.0, x1 - x0) * np.maximum(0.0, y1 - y0)
+    a_dt = (dt_b[:, 2] * dt_b[:, 3])[:, None]
+    denom = np.where(np.asarray(crowd, bool)[None, :], a_dt,
+                     a_dt + (gt_b[:, 2] * gt_b[:, 3])[None, :] - inter)
+    want = np.where(denom > 0, inter / np.where(denom > 0, denom, 1.0), 0.0)
+    if got.tobytes() != want.tobytes():
+        raise SystemExit(f"coco: bbox_iou disagrees with numpy by {np.abs(got - want).max()!r}")
+    for _ in range(8):
+        bw, bh = int(rng.integers(1, w)), int(rng.integers(1, h))
+        x, y = int(rng.integers(-bw // 2, w)), int(rng.integers(-bh // 2, h))
+        poly = mask.frPoly([[x, y, x + bw, y, x + bw, y + bh, x, y + bh]], h, w)
+        if not np.array_equal(poly["counts"], mask.frBbox([x, y, bw, bh], h, w)["counts"]):
+            raise SystemExit(f"coco: frPoly of the rectangle {[x, y, bw, bh]} is not its frBbox")
+    print(f"coco: RLE ops at {h}x{w} equal to numpy on {len(masks)} seeded masks: encode/decode, "
+          f"area, strings, merge of 2-5, iou {len(dts)}x{len(gts)} with crowds, bbox_iou 9x7, "
+          f"frPoly = frBbox on 8 rectangles [{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory() as root:
+        gt, results = coco_set(seed, **COCO_EXACT, hw=hw)
+        path = os.path.join(root, "exact.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(gt, f)
+        for iou_type in ("bbox", "segm", "keypoints"):
+            E, _ = coco_eval(path, results[iou_type], iou_type)
+            if E.stats[0] != 1.0:
+                raise SystemExit(f"coco: {iou_type} AP of detections equal to the ground truth "
+                                 f"is {E.stats[0]!r}, not 1.0")
+        print(f"coco: detections equal to the ground truth give AP 1.0 for bbox, segm and "
+              f"keypoints ({len(gt['images'])} images, {len(gt['annotations'])} annotations)",
+              flush=True)
+
+        t0 = time.perf_counter()
+        gt, results = coco_set(seed + 1, **timed, hw=hw)
+        path = os.path.join(root, "timed.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(gt, f)
+        n_img = len(gt["images"])
+        print(f"coco: timed set made in {time.perf_counter() - t0:.1f} s: {n_img} images of "
+              f"{h}x{w}, {len(gt['categories'])} categories, {len(gt['annotations'])} ground "
+              f"truths ({len(gt['annotations']) / n_img:.2f} an image), "
+              f"{len(results['bbox'])} detections ({len(results['bbox']) / n_img:.2f} an image)",
+              flush=True)
+        for iou_type in ("bbox", "segm"):
+            E, ms = coco_eval(path, results[iou_type], iou_type)
+            if not 0.0 < E.stats[0] < 1.0 or not np.isfinite(E.stats).all():
+                raise SystemExit(f"coco: {iou_type} stats out of range: {E.stats.tolist()}")
+            print(f"time coco {iou_type}: evaluate + accumulate {ms:.1f} ms "
+                  f"({ms / n_img:.3f} ms an image; host clock, one run; AP {E.stats[0]:.4f}, "
+                  f"AP50 {E.stats[1]:.4f}, AR100 {E.stats[8]:.4f}) [{card}]", flush=True)
+    print(f"phase 14 (coco): {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2990,6 +3235,9 @@ def main() -> int:
     # 13. the parallel slice: NCCL at world size 1, a (1, 1) mesh
     phase_parallel(torch, device, args.seed, H, FEAT, LENGTH, VOCAB, card)
     stamp("phase 13")
+    # 14. the cocotools slice: host-side RLE ops and COCOeval, no device work
+    phase_coco(args.seed, card)
+    stamp("phase 14")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
     # at the T of that path (#5: GRU training, where 24 of its 32 phase-8

@@ -15,9 +15,10 @@ and nothing of JAX or of ``s2vt_tpu``:
                    (``opt.json`` + ``params.npz``, written in the background
                    when asked).
 - ``evaluation`` — greedy decoding over a dataset split.
+- ``cocotools``  — the pycocotools COCO API and detection evaluator.
 - ``utils``      — the weight bridge to and from the JAX parameter tree,
-                   device selection, the g++ build of ``native/``, and
-                   profiling.
+                   device selection, the g++ build of ``native/``, the RLE
+                   mask ops, and profiling.
 
 Float32 stays float32 on the card: TF32 is switched off for matmuls and
 cuDNN when the package is imported.

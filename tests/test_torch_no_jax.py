@@ -51,7 +51,9 @@ REQUIRED = {
     "s2vt_tpu_torch.data.glove", "s2vt_tpu_torch.cli.prepare",
     "s2vt_tpu_torch.utils.profiling", "s2vt_tpu_torch.parallel",
     "s2vt_tpu_torch.parallel.mesh", "s2vt_tpu_torch.parallel.distributed",
-    "s2vt_tpu_torch.parallel.vocab",
+    "s2vt_tpu_torch.parallel.vocab", "s2vt_tpu_torch.cocotools",
+    "s2vt_tpu_torch.cocotools.coco", "s2vt_tpu_torch.cocotools.cocoeval",
+    "s2vt_tpu_torch.utils.mask",
 }
 
 
