@@ -150,6 +150,24 @@ Phases; a failure in any of them exits non-zero before the result line:
               for bbox and segm at 480 x 640 on 250 images, 20 categories,
               ~7 ground truths and 100 detections an image (a synthetic set
               of rectangles, not COCO's data).
+ 15. wide     widths whose weights do not fit the resident routes' shared
+              memory, where the sequence kernels and the attention decoder
+              take their "stream" route (launches per step, the weights
+              read from global memory): each gate's answer printed (one that
+              differs from what the phase means to see fails the run); each
+              model built with use_pallas=True and with use_pallas=False on
+              the same seeded weights, f32, B = 16, F = 4096, L = 80,
+              V = 10240. (a) The attention baseline at dim_hid = dim_embed =
+              1000, the S2VT paper's width: a train step (#3 and #4 twice
+              each, the encoder, resident), the no-gradient validation pass
+              (#7 once, stream), one greedy request (#8 80 times). (b) S2VT,
+              one LSTM layer at H = 2048, E = 512 (the fused gate refuses):
+              a train step (#3 and #4 twice each, stream), a greedy request
+              (#3 twice, stream; #8 79 times) and a beam request (W = 3,
+              D = 30; #3 twice, stream). Each held to phase 7's tolerances
+              against the plain model. Then #3, #4 at H = 2048 (T = 159), #7
+              at H = 1000 (T = 79) and #8 at H = 2048, each alone, against
+              and timed beside its plain version (CUDA events).
 
 Phase 2 also checks the out-projection-and-argmax kernel at B in {1, 16, 96,
 200} and two vocab sizes (in bf16 with a float32 W, direct route, and with a
@@ -161,11 +179,12 @@ argmax and cuDNN. Phase 9 holds each greedy request's #8 launches to the
 mma route.
 
 Every launch count read is held exactly to what the path should launch
-(s2vt_launches): each kernel where its slice says, and no other kernel; and
+(s2vt_launches, or phase 15's per call): each kernel where its slice says,
+and no other kernel; and
 every launch of a routed recurrent kernel (the fused forward in phases 3, 4,
-9, 10, 11 and 12, the LSTM sequence kernels in phases 4-9, the GRU forward and
-backward in phase 8, the attention-decoder loop in phase 7) to the route its
-wrapper takes for that batch and mode.
+9, 10, 11 and 12, the LSTM sequence kernels in phases 4-9 and 15, the GRU
+forward and backward in phase 8, the attention-decoder loop in phase 7) to
+the route its wrapper takes for that batch and mode.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports nothing of JAX.
@@ -1476,9 +1495,16 @@ def compare_grads(model, dev_batch, label, card) -> None:
     """The loss and every gradient of one batch on the kernel route against
     the plain route (every kernel wrapper on its plain version), f32: loss
     within LOSS_TOL, each gradient within GRAD_TOL + GRAD_TOL*|g|."""
-    k_loss, k_grads = _grads(model, dev_batch)
+    kernel = _grads(model, dev_batch)
     with plain_kernels():
-        p_loss, p_grads = _grads(model, dev_batch)
+        plain = _grads(model, dev_batch)
+    check_grads(kernel, plain, label, card)
+
+
+def check_grads(kernel, plain, label, card) -> None:
+    """(loss, gradients) of the kernel route against the plain route's: loss
+    within LOSS_TOL, each gradient within GRAD_TOL + GRAD_TOL*|g|."""
+    (k_loss, k_grads), (p_loss, p_grads) = kernel, plain
     worst, worst_key = 0.0, None
     for key, pg in p_grads.items():
         excess = ((k_grads[key] - pg).abs() - GRAD_TOL * (1 + pg.abs())).max().item()
@@ -1544,7 +1570,7 @@ def hold_seq_routes(routes: dict, per_batch: dict, device, label: str, card: str
         return
     print(f"{label}: routed kernel launches {routes} [{card}]", flush=True)
     for name, counts in per_batch.items():
-        want = dict.fromkeys(ROUTE_RULES[name][1], 0)
+        want = dict.fromkeys(routes[name], 0)      # the stream route's count too: 0 here
         for B, n in counts.items():
             want[seq_route(name, hid, B, bf16, device)] += n
         if routes[name] != want:
@@ -3113,6 +3139,185 @@ def phase_coco(seed, card, timed=COCO_TIMED, hw=COCO_HW):
     print(f"phase 14 (coco): {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+WIDE_ATT_HID = 1000          # phase 15 (a): the S2VT paper's LSTM width, the attention baseline
+WIDE_S2VT_HID, WIDE_S2VT_EMBED = 2048, 512   # phase 15 (b): S2VT, one LSTM layer
+WIDE_REPS = 5
+
+
+def wide_gates(device, batch, length, vocab, att_hid, s2vt_hid) -> list:
+    """Each gate that phase 15 reads: (model, gate, width, answer on
+    ``device``, the answer the phase means to see). A sequence or
+    attention-decoder gate that refuses sends its kernel to the stream
+    route; the fused gate that refuses sends S2VT to the per-layer kernels."""
+    from s2vt_tpu_torch.ops import fused_att_decode, fused_decode, fused_rnn, fused_s2vt
+    return [
+        ("att", "lstm_seq_shapes_ok", att_hid, fused_rnn.lstm_seq_shapes_ok(att_hid, device),
+         True),
+        ("att", "att_decode_shapes_ok", att_hid,
+         fused_att_decode.att_decode_shapes_ok(batch, att_hid, length, device), False),
+        ("att", "argmax_linear_ok", att_hid,
+         fused_decode.argmax_linear_ok(batch, att_hid, vocab, device), True),
+        ("s2vt", "fused_shapes_ok", s2vt_hid,
+         fused_s2vt.fused_shapes_ok(s2vt_hid, 1, "lstm", device), False),
+        ("s2vt", "lstm_seq_shapes_ok", s2vt_hid, fused_rnn.lstm_seq_shapes_ok(s2vt_hid, device),
+         False),
+        ("s2vt", "argmax_linear_ok", s2vt_hid,
+         fused_decode.argmax_linear_ok(batch, s2vt_hid, vocab, device), True)]
+
+
+def wide_stream_times(torch, device, batch, length, vocab, att_hid, s2vt_hid, card, reps):
+    """Each kernel on its wide route at the shape phase 15's main path gives
+    it, timed by CUDA events beside its plain version on the same inputs and
+    held to it: the LSTM sequence kernels' stream route at S2VT's H =
+    ``s2vt_hid`` (T = 2L - 1), the attention decoder's at ``att_hid`` (T =
+    L - 1, L encoder positions), the argmax kernel at ``s2vt_hid``."""
+    from s2vt_tpu_torch.ops import fused_att_decode as fad
+    from s2vt_tpu_torch.ops import fused_decode as fd
+    from s2vt_tpu_torch.ops import fused_rnn
+    gen = torch.Generator(device=device).manual_seed(1515)
+    T = 2 * length - 1
+    fargs = seq_inputs(torch, "lstm", batch, T, s2vt_hid, device, gen)
+    got = launch_route("lstm_seq_fwd", fargs, False, "stream")
+    bargs, _ = seq_bwd_inputs(torch, "lstm", fargs, got, device, gen)
+    aargs = att_inputs(torch, batch, length - 1, att_hid, length, device, gen)
+    h = torch.randn(batch, s2vt_hid, device=device, generator=gen)
+    w = torch.randn(vocab, s2vt_hid, device=device, generator=gen) / math.sqrt(s2vt_hid)
+    b = 0.1 * torch.randn(vocab, device=device, generator=gen)
+    cases = (
+        ("lstm_seq_fwd", s2vt_hid, T, lambda: fused_rnn.lstm_seq_fwd(*fargs, False),
+         lambda: fused_rnn.lstm_seq_fwd_reference(*fargs, False), SEQ_ATOL["float32"],
+         seq_fwd_bound_ms(batch, T, s2vt_hid, "float32")),
+        ("lstm_seq_bwd", s2vt_hid, T, lambda: fused_rnn.lstm_seq_bwd(*bargs, False),
+         lambda: fused_rnn.lstm_seq_bwd_reference(*bargs, False), SEQ_ATOL["float32"],
+         seq_bwd_bound_ms(batch, T, s2vt_hid, "float32")),
+        ("att_decode_fwd", att_hid, length - 1, lambda: fad.att_decode_fwd(*aargs, False),
+         lambda: fad.att_decode_fwd_reference(*aargs, False), ATOL["float32"],
+         att_decode_bound_ms(batch, length - 1, att_hid, length, "float32")),
+        ("argmax_linear", s2vt_hid, 1, lambda: fd.argmax_linear(h, w, b, None, False),
+         lambda: fd.argmax_linear_reference(h, w, b, None, False), 0,
+         argmax_bound_ms(batch, s2vt_hid, vocab, "float32",
+                         fd.argmax_linear_route(s2vt_hid, w.dtype, False,
+                                                (h.data_ptr(), w.data_ptr())))))
+    for name, hid, steps, kernel, plain, atol, (bound, by, _, _) in cases:
+        before = read_routes(name)
+        out, want = kernel(), plain()
+        torch.cuda.synchronize()
+        route = next(r for r, n in read_routes(name).items() if n > before[r])
+        out, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+        err = max((g.float() - w_.float()).abs().max().item() for g, w_ in zip(out, want))
+        ms, plain_ms = cuda_ms(torch, kernel, reps), cuda_ms(torch, plain, reps)
+        print(f"wide {name} H={hid} B={batch} T={steps}: route {route}, max |err| {err:.3e} "
+              f"(bound {atol:g}), {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}) [{card}]", flush=True)
+        if route not in ("stream", "mma", "direct") or not err <= atol:
+            raise SystemExit(f"wide {name}: route {route}, off its plain version by {err}")
+
+
+def phase_wide(torch, device, seed, feat, length, vocab, card, batch=MAIN_BATCH,
+               att_hid=WIDE_ATT_HID, s2vt_hid=WIDE_S2VT_HID, s2vt_embed=WIDE_S2VT_EMBED,
+               beam=(BEAM_WIDTH, BEAM_DEPTH), reps=WIDE_REPS):
+    """Widths whose weights do not fit the resident routes: each model built
+    with use_pallas=True and with use_pallas=False on the same seeded
+    weights, f32, B = ``batch``. The gates' answers first (one that differs
+    from what the phase means to see fails it). (a) The attention baseline at
+    dim_hid = dim_embed = ``att_hid``: a train step's forward and backward
+    (the encoder on #3 and #4, resident), the no-gradient validation pass
+    (#7 on its stream route), one greedy request (#8 once per step). (b)
+    S2VT, one LSTM layer at ``s2vt_hid``, E = ``s2vt_embed``: the fused gate
+    refuses, so a train step runs #3 and #4 per layer on their stream route,
+    and a greedy and a beam request encode on #3's; greedy picks with #8.
+    Every call's launch counts and the stream routes' are held exactly, and
+    its results to the plain model's at phase 7's tolerances. Then each
+    kernel alone at its wide shape, timed beside its plain version."""
+    from s2vt_tpu_torch.models import AttBaseline, S2VT
+
+    t_phase = time.perf_counter()
+    for model, gate, width, answer, meant in wide_gates(device, batch, length, vocab, att_hid,
+                                                        s2vt_hid):
+        print(f"wide {model} H={width} L={length} B={batch} V={vocab}: {gate} "
+              f"{'accepts' if answer else 'refuses'} [{card}]", flush=True)
+        if answer != meant:
+            raise SystemExit(f"phase 15 means {gate} to {'accept' if meant else 'refuse'} "
+                             f"H={width}, and it does not")
+
+    def call(label, fn, stream=(), **per_call):
+        """``fn()`` once, its launch counts held to ``per_call`` exactly and
+        the launches of each kernel in ``stream`` to its stream route."""
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        routes = {k: read_routes(k) for k in stream}
+        print(f"wide {label}: launches { {k: n for k, n in got.items() if n} }, stream routes "
+              f"{ {k: r['stream'] for k, r in routes.items()} } [{card}]", flush=True)
+        want = expect(call=(per_call, 1))
+        if got != want or any(r["stream"] != got[k] for k, r in routes.items()):
+            raise SystemExit(f"wide {label} launched {got} ({routes}), not {want} with "
+                             f"{list(stream)} on the stream route")
+        return out
+
+    def pair(cls, **kw):
+        kernel = cls(**kw, use_pallas=True)
+        kernel.reset_parameters(torch.Generator().manual_seed(seed + 15))
+        plain = cls(**kw, use_pallas=False)
+        plain.load_state_dict(kernel.state_dict())
+        return kernel.to(device).eval(), plain.to(device).eval()
+
+    def rows_equal(k_tok, p_tok, label):
+        same = (k_tok == p_tok).all(dim=1).float().mean().item()
+        print(f"wide {label} rows equal to the plain model's: {same:.4f} (bound "
+              f"{ROW_MATCH_MIN_F32}) [{card}]", flush=True)
+        if same < ROW_MATCH_MIN_F32:
+            raise SystemExit(f"wide {label}: rows differ from the plain model: {same:.4f}")
+
+    gen = torch.Generator().manual_seed(seed + 16)
+    data = _random_batch(torch, batch, length, feat, vocab, device, gen)
+    feats, labels = data[:2]
+
+    # (a) The attention baseline: the encoder on #3/#4, #7 on its stream route, #8.
+    kernel, plain = pair(AttBaseline, vocab_size=vocab, dim_feat=feat, length=length,
+                         dim_hid=att_hid, dim_embed=att_hid)
+    tag = f"att H={att_hid}"
+    k_step = call(f"{tag} train step", lambda: _grads(kernel, data), lstm_seq_fwd=2,
+                  lstm_seq_bwd=2)
+    check_grads(k_step, _grads(plain, data), f"wide {tag} train step", card)
+    with torch.no_grad():
+        k_logits = call(f"{tag} no-grad validation pass",
+                        lambda: kernel(feats, labels[:, :-1], deterministic=True),
+                        stream=("att_decode_fwd",), lstm_seq_fwd=2, att_decode_fwd=1)
+        p_logits = plain(feats, labels[:, :-1], deterministic=True)
+    err = (k_logits - p_logits).abs().max().item()
+    print(f"wide {tag} no-grad logits, kernel model vs plain model: max |dlogit| {err:.3e} "
+          f"(bound {ATOL['float32']:.0e}) [{card}]", flush=True)
+    if not err <= ATOL["float32"]:
+        raise SystemExit(f"wide {tag}: no-grad logits off by {err}")
+    k_tok = call(f"{tag} greedy", lambda: kernel.greedy(feats), lstm_seq_fwd=2,
+                 argmax_linear=length)
+    rows_equal(k_tok, plain.greedy(feats), f"{tag} greedy")
+    del kernel, plain
+
+    # (b) S2VT at H = s2vt_hid: the per-layer kernels on their stream route, #8.
+    kernel, plain = pair(S2VT, vocab_size=vocab, feat_dim=feat, length=length,
+                         dim_hid=s2vt_hid, dim_embed=s2vt_embed)
+    tag = f"s2vt H={s2vt_hid} E={s2vt_embed}"
+    # vid_rnn and word_rnn once each: the per-layer route of one layer
+    step, encode = {"lstm_seq_fwd": 2, "lstm_seq_bwd": 2}, {"lstm_seq_fwd": 2}
+    greedy, beam_counts = {**encode, "argmax_linear": length - 1}, encode
+    k_step = call(f"{tag} train step", lambda: _grads(kernel, data),
+                  stream=("lstm_seq_fwd", "lstm_seq_bwd"), **step)
+    check_grads(k_step, _grads(plain, data), f"wide {tag} train step", card)
+    k_tok = call(f"{tag} greedy", lambda: kernel.greedy(feats), stream=("lstm_seq_fwd",),
+                 **greedy)
+    rows_equal(k_tok, plain.greedy(feats), f"{tag} greedy")
+    k_beam = call(f"{tag} beam W={beam[0]} D={beam[1]}", lambda: kernel.beam(feats, *beam),
+                  stream=("lstm_seq_fwd",), **beam_counts)
+    rows_equal(k_beam.tokens, plain.beam(feats, *beam).tokens, f"{tag} beam best")
+    del kernel, plain
+
+    wide_stream_times(torch, device, batch, length, vocab, att_hid, s2vt_hid, card, reps)
+    print(f"wide: phase 15 in {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3238,6 +3443,10 @@ def main() -> int:
     # 14. the cocotools slice: host-side RLE ops and COCOeval, no device work
     phase_coco(args.seed, card)
     stamp("phase 14")
+    # 15. wide widths: the attention baseline at 1000 units and S2VT at
+    # H = 2048, on the kernels' stream routes
+    phase_wide(torch, device, args.seed, FEAT, LENGTH, VOCAB, card)
+    stamp("phase 15")
 
     # Each kernel's launches on its slice's main path; times at B = 16, f32,
     # at the T of that path (#5: GRU training, where 24 of its 32 phase-8

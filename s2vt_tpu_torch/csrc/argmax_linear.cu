@@ -64,7 +64,8 @@
 //  - Grid (vocab tiles, row tiles of RB rows of h): RB = 16 with VR = 4 W rows
 //    per warp (32 per block, 320 blocks at V = 10240) for B <= 16, else
 //    RB = 32 with VR = 2. Each block stages its h rows in shared memory
-//    (rounded to bf16 first in bf16 mode, zero past B) and reads its W rows
+//    (rounded to bf16 first in bf16 mode, zero past B), in chunks of k of
+//    at most kHChunk = 1792 values so that any H fits, and reads its W rows
 //    once, coalesced: W is [V, H], so the H values of one logit column are
 //    contiguous. The lanes of a warp split the k range; each lane keeps
 //    VR x RB partial sums in registers, loads VR x 4 values of W at a time,
@@ -194,6 +195,8 @@ __device__ __forceinline__ void finish_row_tile(const float* __restrict__ pmax,
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLoads = 4;                    // k positions each lane loads at once
+constexpr int kHChunk = 14 * 32 * kLoads;    // k values of h staged at once: 1792, so that a
+                                             // 32-row tile fits 227 KB of shared memory
 
 // RB rows of h per block, VR rows of W per warp (kVT = 8 * VR per block).
 template <int RB, int VR>
@@ -203,20 +206,13 @@ argmax_linear_kernel(const float* __restrict__ h, const float* __restrict__ w,
                      float* __restrict__ out_val, float* __restrict__ pmax,
                      int* __restrict__ pidx, unsigned int* __restrict__ counter, int B, int H,
                      int V, int valid, int bf16) {
-  extern __shared__ float hs[];                // [RB][H]
+  extern __shared__ float hs[];                // [RB][kc]: the chunk of k in flight
   __shared__ float red_v[kWarps][32];
   __shared__ int red_i[kWarps][32];
 
   const int vt = blockIdx.x, rt = blockIdx.y;
   const int row0 = rt * RB;
   const int rows = min(RB, B - row0);
-  for (int i = threadIdx.x; i < RB * H; i += kThreads) {
-    const int r = i / H;
-    float v = r < rows ? h[(size_t)(row0 + r) * H + (i - r * H)] : 0.0f;
-    hs[i] = bf16 ? round_bf16(v) : v;
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int vbase = (vt * kWarps + warp) * VR;   // this warp's W rows vbase .. + VR - 1
   float acc[VR][RB];
@@ -224,26 +220,39 @@ argmax_linear_kernel(const float* __restrict__ h, const float* __restrict__ w,
   for (int j = 0; j < VR; ++j)
 #pragma unroll
     for (int r = 0; r < RB; ++r) acc[j][r] = 0.0f;
-  for (int k0 = lane; k0 < H; k0 += 32 * kLoads) {
-    float wv[VR][kLoads];                      // VR * kLoads loads in flight
+  // k in chunks of kHChunk (one chunk up to H = 1792), each summed in the
+  // order of one pass over the whole row.
+  for (int c0 = 0; c0 < H; c0 += kHChunk) {
+    const int kc = min(kHChunk, H - c0);
+    if (c0 > 0) __syncthreads();               // the previous chunk's products have read hs
+    for (int i = threadIdx.x; i < RB * kc; i += kThreads) {
+      const int r = i / kc;
+      float v = r < rows ? h[(size_t)(row0 + r) * H + c0 + (i - r * kc)] : 0.0f;
+      hs[i] = bf16 ? round_bf16(v) : v;
+    }
+    __syncthreads();
+
+    for (int k0 = lane; k0 < kc; k0 += 32 * kLoads) {
+      float wv[VR][kLoads];                    // VR * kLoads loads in flight
 #pragma unroll
-    for (int j = 0; j < VR; ++j) {
-      const float* wr = w + (size_t)min(vbase + j, V - 1) * H;
+      for (int j = 0; j < VR; ++j) {
+        const float* wr = w + (size_t)min(vbase + j, V - 1) * H + c0;
+#pragma unroll
+        for (int q = 0; q < kLoads; ++q) {
+          const int k = k0 + 32 * q;
+          float x = k < kc ? __ldg(wr + k) : 0.0f;
+          wv[j][q] = bf16 ? round_bf16(x) : x;
+        }
+      }
 #pragma unroll
       for (int q = 0; q < kLoads; ++q) {
-        const int k = k0 + 32 * q;
-        float x = k < H ? __ldg(wr + k) : 0.0f;
-        wv[j][q] = bf16 ? round_bf16(x) : x;
-      }
-    }
+        const int k = min(k0 + 32 * q, kc - 1);  // past the chunk: wv is 0, any h will do
 #pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int k = min(k0 + 32 * q, H - 1);   // past H: wv is 0, any h value will do
+        for (int r = 0; r < RB; ++r) {
+          const float hv = hs[r * kc + k];     // one shared-memory read for VR products
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float hv = hs[r * H + k];        // one shared-memory read for VR products
-#pragma unroll
-        for (int j = 0; j < VR; ++j) acc[j][r] = fmaf(wv[j][q], hv, acc[j][r]);
+          for (int j = 0; j < VR; ++j) acc[j][r] = fmaf(wv[j][q], hv, acc[j][r]);
+        }
       }
     }
   }
@@ -284,7 +293,7 @@ template <int RB, int VR>
 int launch(const float* h, const float* w, const float* bias, long long* out, float* out_val,
            float* pmax, int* pidx, unsigned int* counter, int B, int H, int V, int valid,
            int bf16, cudaStream_t stream) {
-  const size_t smem = (size_t)RB * H * sizeof(float);
+  const size_t smem = (size_t)RB * (H < kHChunk ? H : kHChunk) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(argmax_linear_kernel<RB, VR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -669,8 +678,11 @@ int argmax_linear_mma_vocab_tiles(int V, int bf16) {
 }
 
 // Dynamic shared memory a "direct" block needs for hidden size H (the 32-row
-// tile). The "mma" route's does not depend on H (at most 111 KB).
-size_t argmax_linear_smem_bytes(int H) { return (size_t)32 * H * sizeof(float); }
+// tile of a chunk of k: at most 224 KB, at H >= 1792). The "mma" route's does
+// not depend on H (at most 111 KB).
+size_t argmax_linear_smem_bytes(int H) {
+  return (size_t)32 * (H < kHChunk ? H : kHChunk) * sizeof(float);
+}
 
 // The "direct" route. h [B, H], w [V, H], bias [V] float32; out [B] int64;
 // pmax [tiles, B] float32 and pidx [tiles, B] int32 scratch

@@ -18,12 +18,14 @@
 // ctx and h of the gate products and h of the dw product. The w_apply
 // reduction, the softmax and all state stay float32.
 //
-// Two routes, chosen by the caller before the launch
+// Three routes, chosen by the caller before the launch
 // (ops/fused_att_decode.py::att_decode_fwd_route): "mma" (below, after the
 // direct kernel: the context product folded into one batched tensor-core
 // product off the step chain, batch groups, three step-tagged exchanges per
-// step and no grid barrier) for the shapes where it was measured faster, and
-// "direct" for every other shape.
+// step and no grid barrier) for the shapes where it was measured faster,
+// "direct" for every other shape whose weights fit its blocks' shared
+// memory, and "stream" (last: four launches per step on stream.cuh's
+// products, the weights read from global memory) for the widths beyond.
 //
 // "direct" route.
 // Design:
@@ -77,6 +79,7 @@
 #include "common.cuh"
 #include "exchange.cuh"
 #include "mma.cuh"
+#include "stream.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -1110,6 +1113,143 @@ bool serves(int H, int L, int B, int U, int groups, int tiles) {
 
 }  // namespace mma_route
 
+// ---------------------------------------------------------------------------
+// The "stream" route (stream.cuh): per step t, four launches, so that no
+// weight is held between them and every width is served --
+//  1. the gates of [ctx | h_{t-1}] against [W_ctx | W_hh] (joined once per
+//     call into one [4H, 3H] matrix in the scratch, so that each weight row
+//     is one contiguous read) and the cell, a warp per unit (stream.cuh's
+//     forward products): h_t into out[t], c into the scratch;
+//  2. dw = h_t @ W_att^T + b_att, a warp per unit;
+//  3. the scores et, a warp per (batch row, encoder position), its lanes
+//     over H;
+//  4. per batch row, the softmax over L (each block of the row again) and
+//     ctx, a thread per column of 2H.
+// 2-4 are skipped after the last step.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamWarps = 8;     // units per block: at H = 1000, 125 blocks
+constexpr int kAttendThreads = 256;
+
+// wcat [G, 3H] = [wctx [G, 2H] | whh [G, H]], a thread per value.
+__global__ void __launch_bounds__(kAttendThreads)
+att_decode_stream_join(const float* __restrict__ wctx, const float* __restrict__ whh,
+                       float* __restrict__ wcat, int G, int H) {
+  const size_t i = (size_t)blockIdx.x * kAttendThreads + threadIdx.x, H3 = 3 * (size_t)H;
+  if (i >= (size_t)G * H3) return;
+  const size_t r = i / H3, k = i - r * H3;
+  wcat[i] = k < 2 * (size_t)H ? wctx[r * 2 * H + k] : whh[r * H + k - 2 * H];
+}
+
+__global__ void __launch_bounds__(32 * kStreamWarps)
+att_decode_stream_cell(const float* __restrict__ xp, const float* __restrict__ wcat,
+                       const float* __restrict__ ctx, float* __restrict__ out,
+                       float* __restrict__ cbuf, int t, int B, int H, int bf16) {
+  namespace sr = stream_route;
+  extern __shared__ float xs[];
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * kStreamWarps + (threadIdx.x >> 5), b0 = blockIdx.y * sr::kRows;
+  const size_t BH = (size_t)B * H, G = 4 * (size_t)H;
+  const int H2 = 2 * H;
+  const float* hp = t > 0 ? out + (t - 1) * BH : out;   // read only where t > 0
+  float acc[4][sr::kRows], s[4];
+  sr::lane_sums<4>(
+      [=](int b, int k) {
+        return k < H2 ? ctx[(size_t)b * H2 + k] : t > 0 ? hp[(size_t)b * H + k - H2] : 0.0f;
+      },
+      [=](int g, int k) { return __ldg(wcat + ((size_t)g * H + j) * (3 * H) + k); }, 0, 3 * H, B,
+      b0, j < H, bf16, xs, acc);
+  sr::warp_sums<4>(acc, s, lane);
+  const int b = b0 + lane;
+  if (j >= H || lane >= sr::kRows || b >= B) return;
+  const size_t grow = ((size_t)t * B + b) * G + j, hrow = (size_t)b * H + j;
+  const float ig = sigmoid_f(xp[grow] + s[0]);
+  const float fg = sigmoid_f(xp[grow + H] + s[1]);
+  const float gg = tanhf(xp[grow + 2 * H] + s[2]);
+  const float og = sigmoid_f(xp[grow + 3 * H] + s[3]);
+  const float cp = t > 0 ? cbuf[hrow] : 0.0f;
+  const float c = fg * cp + ig * gg;
+  out[t * BH + hrow] = og * tanhf(c);
+  cbuf[hrow] = c;
+}
+
+__global__ void __launch_bounds__(32 * kStreamWarps)
+att_decode_stream_dw(const float* __restrict__ watt, const float* __restrict__ batt,
+                     const float* __restrict__ h, float* __restrict__ dw, int B, int H,
+                     int bf16) {
+  namespace sr = stream_route;
+  extern __shared__ float xs[];
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * kStreamWarps + (threadIdx.x >> 5), b0 = blockIdx.y * sr::kRows;
+  float acc[1][sr::kRows], s[1];
+  sr::lane_sums<1>([=](int b, int k) { return h[(size_t)b * H + k]; },
+                   [=](int, int k) { return __ldg(watt + (size_t)j * H + k); }, 0, H, B, b0,
+                   j < H, bf16, xs, acc);
+  sr::warp_sums<1>(acc, s, lane);
+  const int b = b0 + lane;
+  if (j < H && lane < sr::kRows && b < B) dw[(size_t)b * H + j] = s[0] + batt[j];
+}
+
+// et[b][l] = sum_H tanh(enc_wh[b, l] + dw[b]) * w_apply, a warp per l.
+__global__ void __launch_bounds__(kAttendThreads)
+att_decode_stream_scores(const float* __restrict__ dw, const float* __restrict__ wapp,
+                         const float* __restrict__ ewh, float* __restrict__ et, int H, int L,
+                         int bf16) {
+  const int b = blockIdx.x, lane = threadIdx.x & 31;
+  const int l = blockIdx.y * (kAttendThreads / 32) + (threadIdx.x >> 5);
+  if (l >= L) return;
+  const float* d = dw + (size_t)b * H;
+  const float* e = ewh + ((size_t)b * L + l) * H;
+  float s = 0.0f;
+#pragma unroll 4
+  for (int k = lane; k < H; k += 32) {
+    const float v = bf16 ? round_bf16(e[k]) : e[k];
+    s = fmaf(tanhf(v + d[k]), __ldg(wapp + k), s);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) et[(size_t)b * L + l] = s;
+}
+
+// ctx[b] = sum_L softmax_L(et[b])[l] * enc_out[b, l], a thread per column;
+// each block of row b takes the softmax of its L scores itself.
+__global__ void __launch_bounds__(kAttendThreads)
+att_decode_stream_context(const float* __restrict__ et, const float* __restrict__ eout,
+                          float* __restrict__ ctx, int H, int L, int bf16) {
+  extern __shared__ float at[];                 // [L]: exp(et - max) / sum
+  __shared__ float total;
+  const int b = blockIdx.x, lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    const float* e = et + (size_t)b * L;
+    float m = -INFINITY;
+    for (int l = lane; l < L; l += 32) m = fmaxf(m, e[l]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.0f;
+    for (int l = lane; l < L; l += 32) {
+      const float x = expf(e[l] - m);
+      at[l] = x;
+      sum += x;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) total = sum;
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < L; l += kAttendThreads) at[l] /= total;
+  __syncthreads();
+  const int H2 = 2 * H, j = blockIdx.y * kAttendThreads + threadIdx.x;
+  if (j >= H2) return;
+  const float* eo = eout + (size_t)b * L * H2 + j;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int l = 0; l < L; ++l) {
+    const float v = bf16 ? round_bf16(eo[(size_t)l * H2]) : eo[(size_t)l * H2];
+    s = fmaf(at[l], v, s);
+  }
+  ctx[(size_t)b * H2 + j] = s;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1218,6 +1358,59 @@ int att_decode_fwd_mma(const void* xp, const void* wctx, const void* whh, const 
 #undef S2VT_ATT_MMA
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The stream route: the inputs of att_decode_fwd, out [T, B, H] and scratch
+// [12 H H + 4 B H + B L] float32 ([W_ctx | W_hh], c, dw, ctx, et), for any
+// H, L and B; 4 T - 2 launches on `stream`. Returns the cudaError_t of the first call that
+// fails.
+int att_decode_fwd_stream(const void* xp, const void* wctx, const void* whh, const void* watt,
+                          const void* batt, const void* wapp, const void* ewh, const void* eout,
+                          const void* ctx0, void* out, void* scratch, int T, int B, int H, int L,
+                          int bf16, int device, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t BH = (size_t)B * H;
+  float* pout = static_cast<float*>(out);
+  float* wcat = static_cast<float*>(scratch);
+  float* cbuf = wcat + (size_t)12 * H * H;
+  float* dw = cbuf + BH;
+  float* ctx = dw + BH;
+  float* et = ctx + 2 * BH;
+  const size_t cell_smem = stream_route::smem_bytes(3 * H), dw_smem = stream_route::smem_bytes(H);
+  const size_t at_smem = (size_t)L * sizeof(float);
+  if ((err = stream_route::allow_smem(att_decode_stream_cell, cell_smem)) != cudaSuccess ||
+      (err = stream_route::allow_smem(att_decode_stream_dw, dw_smem)) != cudaSuccess ||
+      (err = stream_route::allow_smem(att_decode_stream_context, at_smem)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid = stream_route::grid(B, H, kStreamWarps);
+  const dim3 score_grid(B, (L + kAttendThreads / 32 - 1) / (kAttendThreads / 32));
+  const dim3 ctx_grid(B, (2 * H + kAttendThreads - 1) / kAttendThreads);
+  att_decode_stream_join<<<(unsigned)(((size_t)12 * H * H + kAttendThreads - 1) / kAttendThreads),
+                           kAttendThreads, 0, st>>>(static_cast<const float*>(wctx),
+                                                    static_cast<const float*>(whh), wcat, 4 * H,
+                                                    H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int t = 0; t < T; ++t) {
+    att_decode_stream_cell<<<grid, 32 * kStreamWarps, cell_smem, st>>>(
+        static_cast<const float*>(xp), wcat, t > 0 ? ctx : static_cast<const float*>(ctx0), pout,
+        cbuf, t, B, H, bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (t == T - 1) break;
+    att_decode_stream_dw<<<grid, 32 * kStreamWarps, dw_smem, st>>>(
+        static_cast<const float*>(watt), static_cast<const float*>(batt), pout + t * BH, dw, B, H,
+        bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    att_decode_stream_scores<<<score_grid, kAttendThreads, 0, st>>>(
+        dw, static_cast<const float*>(wapp), static_cast<const float*>(ewh), et, H, L, bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    att_decode_stream_context<<<ctx_grid, kAttendThreads, at_smem, st>>>(
+        et, static_cast<const float*>(eout), ctx, H, L, bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Message for a cudaError_t returned above.

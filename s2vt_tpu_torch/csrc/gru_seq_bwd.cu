@@ -20,12 +20,15 @@
 // as operands of the product, and nothing is stored rounded, as the TPU
 // kernel does.
 //
-// Two routes, chosen by the caller before the launch
+// Three routes, chosen by the caller before the launch
 // (ops/fused_gru.py::gru_seq_bwd_route): "mma" (below, after the direct
 // kernel: batch groups, bf16 on the tensor cores, dh exchanged as
 // step-tagged words from which each block recomputes the gate gradients)
-// for the widths and batches where it was measured faster, and "direct" for
-// every other shape.
+// for the widths and batches where it was measured faster, "direct" for
+// every other shape whose weights fit its blocks' shared memory, and
+// "stream" (last, on stream.cuh: per iteration the recurrent products in
+// slices, then the cells, W_hh^T read from global memory) for the widths
+// beyond.
 //
 // "direct" route.
 // Design (that of lstm_seq_bwd.cu with a two-part operand):
@@ -79,6 +82,7 @@
 #include "common.cuh"
 #include "exchange.cuh"
 #include "mma.cuh"
+#include "stream.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -737,6 +741,84 @@ bool serves(int H, int B, int U, int groups, int tiles, int bf16) {
 
 }  // namespace mma_route
 
+// ---------------------------------------------------------------------------
+// The "stream" route (stream.cuh): per iteration, the recurrent products in
+// kChunk slices of the reduction (a block of kStreamWarps warps takes four
+// units per warp and one slice, W_hh^T read from global memory), then the
+// cells, one thread per (row, unit); for the widths whose weights do not
+// fit the resident routes.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamWarps = 16;
+constexpr int kCellThreads = 256;
+
+// part[slice][b][j] = the share of slice blockIdx.y of [dr_pre | dz_pre |
+// dghn][t + 1] @ W_hh (dg: dxp[t + 1], its first 2H columns; dn: dghn[t + 1]).
+// wt is W_hh^T [H, 3H].
+__global__ void __launch_bounds__(32 * kStreamWarps)
+gru_seq_bwd_stream_products(const float* __restrict__ dg, const float* __restrict__ dn,
+                            const float* __restrict__ wt, float* __restrict__ part, int B, int H,
+                            int bf16) {
+  namespace sr = stream_route;
+  extern __shared__ float xs[];
+  const int lane = threadIdx.x & 31;
+  const int j0 = (blockIdx.x * kStreamWarps + (threadIdx.x >> 5)) * 4, b0 = blockIdx.z * sr::kRows;
+  const int G = 3 * H, H2 = 2 * H, r0 = blockIdx.y * sr::kChunk, r1 = min(G, r0 + sr::kChunk);
+  float acc[4][sr::kRows], s[4];
+  sr::lane_sums<4>(
+      [=](int b, int r) {
+        return r < H2 ? dg[(size_t)b * G + r] : dn[(size_t)b * H + r - H2];
+      },
+      [=](int u, int r) { return j0 + u < H ? __ldg(wt + (size_t)(j0 + u) * G + r) : 0.0f; },
+      r0, r1, B, b0, j0 < H, bf16, xs, acc);
+  sr::warp_sums<4>(acc, s, lane);
+  const int b = b0 + lane;
+  if (lane >= sr::kRows || b >= B) return;
+  float* p = part + ((size_t)blockIdx.y * B + b) * H;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (j0 + u < H) p[j0 + u] = s[u];
+}
+
+// Iteration t = T-1 .. -1, a thread per (row, unit): dh from the step after
+// (dhT at t = T - 1, else the carry dh * z, which lives in dh0, plus the
+// `slices` partial sums, added in order), then the cell; at t = -1 only
+// dh0.
+__global__ void __launch_bounds__(kCellThreads)
+gru_seq_bwd_stream_cell(const float* __restrict__ gates, const float* __restrict__ ghn,
+                        const float* __restrict__ hprev, const float* __restrict__ dout,
+                        const float* __restrict__ dhT, const float* __restrict__ part,
+                        float* __restrict__ dxp, float* __restrict__ dghn,
+                        float* __restrict__ dh0, int slices, int t, int T, int B, int H) {
+  const size_t BH = (size_t)B * H, G = 3 * (size_t)H;
+  const size_t hrow = (size_t)blockIdx.x * kCellThreads + threadIdx.x;
+  if (hrow >= BH) return;
+  const size_t b = hrow / H, j = hrow - b * H;
+  float dprev;   // dh from the step after t
+  if (t == T - 1) {
+    dprev = dhT[hrow];
+  } else {
+    float rec = 0.0f;
+    for (int q = 0; q < slices; ++q) rec += part[q * BH + hrow];
+    dprev = dh0[hrow] + rec;
+  }
+  if (t < 0) {
+    dh0[hrow] = dprev;
+    return;
+  }
+  const float dh = dout[t * BH + hrow] + dprev;
+  const size_t grow = ((size_t)t * B + b) * G + j;
+  const float rg = gates[grow], zg = gates[grow + H], ng = gates[grow + 2 * H];
+  const float gn = ghn[t * BH + hrow], hp = hprev[t * BH + hrow];
+  const float dz = dh * (hp - ng);
+  const float dn_pre = dh * (1.0f - zg) * (1.0f - ng * ng);
+  dxp[grow] = dn_pre * gn * rg * (1.0f - rg);
+  dxp[grow + H] = dz * zg * (1.0f - zg);
+  dxp[grow + 2 * H] = dn_pre;
+  dghn[t * BH + hrow] = dn_pre * rg;
+  dh0[hrow] = dh * zg;
+}
+
 }  // namespace
 
 extern "C" {
@@ -837,6 +919,52 @@ int gru_seq_bwd_mma(const void* gates, const void* ghn, const void* hprev, const
 #undef S2VT_GRU_BWD_MMA
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Float32 scratch the stream route needs at batch B and hidden size H:
+// W_hh^T, then the partial sums of the reduction's slices.
+size_t gru_seq_bwd_stream_scratch_floats(int B, int H) {
+  return (size_t)3 * H * H + (size_t)stream_route::splits(3 * H) * B * H;
+}
+
+// The stream route: the arguments of gru_seq_bwd without U, then `scratch`
+// (gru_seq_bwd_stream_scratch_floats(B, H) floats), for any H and B; a
+// transpose, then per iteration the products (but at t = T - 1) and the
+// cells, on `stream`. Returns the cudaError_t of the first call that fails.
+int gru_seq_bwd_stream(const void* gates, const void* ghn, const void* hprev, const void* w,
+                       const void* dout, const void* dhT, void* dxp, void* dghn, void* dh0,
+                       void* scratch, int T, int B, int H, int bf16, int device, void* stream) {
+  namespace sr = stream_route;
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = 3 * H, slices = sr::splits(G);
+  float* wt = static_cast<float*>(scratch);
+  float* part = wt + (size_t)G * H;
+  float* pdxp = static_cast<float*>(dxp);
+  float* pdghn = static_cast<float*>(dghn);
+  if ((err = sr::transpose(static_cast<const float*>(w), wt, G, H, st)) != cudaSuccess)
+    return (int)err;
+  const size_t smem = sr::smem_bytes(G);
+  if ((err = sr::allow_smem(gru_seq_bwd_stream_products, smem)) != cudaSuccess) return (int)err;
+  const dim3 grid((H + 4 * kStreamWarps - 1) / (4 * kStreamWarps), slices,
+                  (B + sr::kRows - 1) / sr::kRows);
+  const unsigned cells = (unsigned)(((size_t)B * H + kCellThreads - 1) / kCellThreads);
+  for (int t = T - 1; t >= -1; --t) {
+    if (t < T - 1) {
+      gru_seq_bwd_stream_products<<<grid, 32 * kStreamWarps, smem, st>>>(
+          pdxp + (size_t)(t + 1) * B * G, pdghn + (size_t)(t + 1) * B * H, wt, part, B, H, bf16);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    gru_seq_bwd_stream_cell<<<cells, kCellThreads, 0, st>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(ghn),
+        static_cast<const float*>(hprev), static_cast<const float*>(dout),
+        static_cast<const float*>(dhT), part, pdxp, pdghn, static_cast<float*>(dh0), slices, t,
+        T, B, H);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Message for a cudaError_t returned above.

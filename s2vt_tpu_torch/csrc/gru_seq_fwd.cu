@@ -16,11 +16,13 @@
 // product (h_{t-1} and W_hh) are rounded to bf16 first, as the TPU kernel
 // does, and nothing else is (the h_{t-1} of the update is float32).
 //
-// Two routes, chosen by the caller before the launch
+// Three routes, chosen by the caller before the launch
 // (ops/fused_gru.py::gru_seq_fwd_route): "mma" (below, after the direct
 // kernel: batch groups, bf16 on the tensor cores, h exchanged as step-tagged
-// words) for the widths and batches where it was measured faster, and
-// "direct" for every other shape.
+// words) for the widths and batches where it was measured faster, "direct"
+// for every other shape whose weights fit its blocks' shared memory, and
+// "stream" (last, on stream.cuh: one launch per step, W_hh read from global
+// memory) for the widths beyond.
 //
 // "direct" route.
 // Design (that of lstm_seq_fwd.cu's direct route with three gate rows per
@@ -68,6 +70,7 @@
 #include "common.cuh"
 #include "exchange.cuh"
 #include "mma.cuh"
+#include "stream.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -667,6 +670,51 @@ bool serves(int H, int B, int U, int groups, int tiles, int bf16) {
 
 }  // namespace mma_route
 
+// ---------------------------------------------------------------------------
+// The "stream" route (stream.cuh): one launch per step, W_hh read from global
+// memory, for the widths whose weights do not fit the resident routes. A
+// block of kStreamWarps warps takes kStreamWarps units, a warp one unit's
+// gate rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamWarps = 16;
+
+__global__ void __launch_bounds__(32 * kStreamWarps)
+gru_seq_fwd_stream_kernel(const float* __restrict__ xp, const float* __restrict__ w,
+                          const float* __restrict__ bhh, const float* __restrict__ h0,
+                          float* __restrict__ out, float* __restrict__ gates,
+                          float* __restrict__ ghn, float* __restrict__ hT, int t, int T, int B,
+                          int H, int bf16) {
+  namespace sr = stream_route;
+  extern __shared__ float xs[];
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * kStreamWarps + (threadIdx.x >> 5), b0 = blockIdx.y * sr::kRows;
+  const size_t BH = (size_t)B * H, G = 3 * (size_t)H;
+  const float* hp = t > 0 ? out + (t - 1) * BH : h0;
+  float acc[3][sr::kRows], s[3];
+  sr::lane_sums<3>([=](int b, int k) { return hp[(size_t)b * H + k]; },
+                   [=](int g, int k) { return __ldg(w + ((size_t)g * H + j) * H + k); }, 0, H,
+                   B, b0, j < H, bf16, xs, acc);
+  sr::warp_sums<3>(acc, s, lane);
+  const int b = b0 + lane;
+  if (j >= H || lane >= sr::kRows || b >= B) return;
+  const size_t grow = ((size_t)t * B + b) * G + j, hrow = (size_t)b * H + j;
+  const float ghr = s[0] + bhh[j];
+  const float ghz = s[1] + bhh[H + j];
+  const float ghnv = s[2] + bhh[2 * H + j];
+  const float rg = sigmoid_f(xp[grow] + ghr);
+  const float zg = sigmoid_f(xp[grow + H] + ghz);
+  const float ng = tanhf(xp[grow + 2 * H] + rg * ghnv);
+  const float hprev = t > 0 ? out[(t - 1) * BH + hrow] : h0[hrow];
+  const float h = (1.0f - zg) * ng + zg * hprev;
+  gates[grow] = rg;
+  gates[grow + H] = zg;
+  gates[grow + 2 * H] = ng;
+  ghn[t * BH + hrow] = ghnv;
+  out[t * BH + hrow] = h;
+  if (t == T - 1) hT[hrow] = h;
+}
+
 }  // namespace
 
 extern "C" {
@@ -755,6 +803,30 @@ int gru_seq_fwd_mma(const void* xp, const void* w, const void* bhh, const void* 
 #undef S2VT_GRU_MMA
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The stream route: the arguments of gru_seq_fwd without U, for any H and
+// B; T launches on `stream`, one per step. Returns the cudaError_t of the
+// first call that fails.
+int gru_seq_fwd_stream(const void* xp, const void* w, const void* bhh, const void* h0, void* out,
+                       void* gates, void* ghn, void* hT, int T, int B, int H, int bf16,
+                       int device, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = stream_route::smem_bytes(H);
+  if ((err = stream_route::allow_smem(gru_seq_fwd_stream_kernel, smem)) != cudaSuccess)
+    return (int)err;
+  for (int t = 0; t < T; ++t) {
+    gru_seq_fwd_stream_kernel<<<stream_route::grid(B, H, kStreamWarps), 32 * kStreamWarps, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(xp), static_cast<const float*>(w),
+        static_cast<const float*>(bhh), static_cast<const float*>(h0), static_cast<float*>(out),
+        static_cast<float*>(gates), static_cast<float*>(ghn), static_cast<float*>(hT), t, T, B,
+        H, bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Message for a cudaError_t returned above.

@@ -14,10 +14,13 @@
 // bf16 != 0 the gate gradients and W_hh are rounded to bf16 as operands of
 // the product, and dxp is stored unrounded, as the TPU kernel does.
 //
-// Two routes, chosen by the caller before the launch
+// Three routes, chosen by the caller before the launch
 // (ops/fused_rnn.py::lstm_seq_bwd_route): "cluster" (below, after the
 // direct kernel) for the widths and batches it serves -- H = 512, the MSVD
-// width, among them -- and "direct" for every other shape.
+// width, among them --, "direct" for every other shape whose weights fit its
+// blocks' shared memory, and "stream" (last, on stream.cuh: per iteration the
+// recurrent products in slices, then the cells, W_hh^T read from global
+// memory) for the widths beyond.
 //
 // "direct" route.
 // Design:
@@ -67,6 +70,7 @@
 #include "common.cuh"
 #include "exchange.cuh"
 #include "mma.cuh"
+#include "stream.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -702,6 +706,80 @@ bool serves(int H, int B) {
 
 }  // namespace cluster_route
 
+// ---------------------------------------------------------------------------
+// The "stream" route (stream.cuh): per iteration, the recurrent products in
+// kChunk slices of the reduction (a block of kStreamWarps warps takes four
+// units per warp and one slice, W_hh^T read from global memory), then the
+// cells, one thread per (row, unit); for the widths whose weights do not
+// fit the resident routes.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamWarps = 16;
+constexpr int kCellThreads = 256;
+
+// part[slice][b][j] = sum over the slice's r of dg[b][r] * W_hh[r][j]: the
+// share of slice blockIdx.y of dgates[t + 1] @ W_hh. wt is W_hh^T [H, 4H].
+__global__ void __launch_bounds__(32 * kStreamWarps)
+lstm_seq_bwd_stream_products(const float* __restrict__ dg, const float* __restrict__ wt,
+                             float* __restrict__ part, int B, int H, int bf16) {
+  namespace sr = stream_route;
+  extern __shared__ float xs[];
+  const int lane = threadIdx.x & 31;
+  const int j0 = (blockIdx.x * kStreamWarps + (threadIdx.x >> 5)) * 4, b0 = blockIdx.z * sr::kRows;
+  const int G = 4 * H, r0 = blockIdx.y * sr::kChunk, r1 = min(G, r0 + sr::kChunk);
+  float acc[4][sr::kRows], s[4];
+  sr::lane_sums<4>(
+      [=](int b, int r) { return dg[(size_t)b * G + r]; },
+      [=](int u, int r) { return j0 + u < H ? __ldg(wt + (size_t)(j0 + u) * G + r) : 0.0f; },
+      r0, r1, B, b0, j0 < H, bf16, xs, acc);
+  sr::warp_sums<4>(acc, s, lane);
+  const int b = b0 + lane;
+  if (lane >= sr::kRows || b >= B) return;
+  float* p = part + ((size_t)blockIdx.y * B + b) * H;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (j0 + u < H) p[j0 + u] = s[u];
+}
+
+// Iteration t = T-1 .. -1, a thread per (row, unit): dh from the step after
+// (dhT at t = T - 1, else the `slices` partial sums, added in order), then
+// the cell; at t = -1 only dh0.
+__global__ void __launch_bounds__(kCellThreads)
+lstm_seq_bwd_stream_cell(const float* __restrict__ gates, const float* __restrict__ cseq,
+                         const float* __restrict__ cprev, const float* __restrict__ dout,
+                         const float* __restrict__ dhT, const float* __restrict__ dcT,
+                         const float* __restrict__ part, float* __restrict__ dxp,
+                         float* __restrict__ dh0, float* __restrict__ dc0, int slices, int t,
+                         int T, int B, int H) {
+  const size_t BH = (size_t)B * H, G = 4 * (size_t)H;
+  const size_t hrow = (size_t)blockIdx.x * kCellThreads + threadIdx.x;
+  if (hrow >= BH) return;
+  const size_t b = hrow / H, j = hrow - b * H;
+  float dprev = 0.0f;   // dh from the step after t
+  if (t == T - 1) {
+    dprev = dhT[hrow];
+  } else {
+    for (int q = 0; q < slices; ++q) dprev += part[q * BH + hrow];
+  }
+  if (t < 0) {
+    dh0[hrow] = dprev;
+    return;
+  }
+  const float dh = dout[t * BH + hrow] + dprev;
+  const float carry = t == T - 1 ? dcT[hrow] : dc0[hrow];   // dc0 holds the carry
+  const size_t grow = ((size_t)t * B + b) * G + j;
+  const float gi = gates[grow], gf = gates[grow + H], gg = gates[grow + 2 * H],
+              go = gates[grow + 3 * H];
+  const float cc = cseq[t * BH + hrow], cp = cprev[t * BH + hrow];
+  const float tc = tanhf(cc);
+  const float dcv = carry + dh * go * (1.0f - tc * tc);
+  dxp[grow] = dcv * gg * gi * (1.0f - gi);
+  dxp[grow + H] = dcv * cp * gf * (1.0f - gf);
+  dxp[grow + 2 * H] = dcv * gi * (1.0f - gg * gg);
+  dxp[grow + 3 * H] = dh * tc * go * (1.0f - go);
+  dc0[hrow] = dcv * gf;
+}
+
 }  // namespace
 
 extern "C" {
@@ -793,6 +871,52 @@ int lstm_seq_bwd_cluster(const void* gates, const void* cseq, const void* cprev,
                                         out[1], out[2], words, T, B, H, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Float32 scratch the stream route needs at batch B and hidden size H:
+// W_hh^T, then the partial sums of the reduction's slices.
+size_t lstm_seq_bwd_stream_scratch_floats(int B, int H) {
+  return (size_t)4 * H * H + (size_t)stream_route::splits(4 * H) * B * H;
+}
+
+// The stream route: the arguments of lstm_seq_bwd without U, then `scratch`
+// (lstm_seq_bwd_stream_scratch_floats(B, H) floats), for any H and B; a
+// transpose, then per iteration the products (but at t = T - 1) and the
+// cells, on `stream`. Returns the cudaError_t of the first call that fails.
+int lstm_seq_bwd_stream(const void* gates, const void* cseq, const void* cprev, const void* w,
+                        const void* dout, const void* dhT, const void* dcT, void* dxp, void* dh0,
+                        void* dc0, void* scratch, int T, int B, int H, int bf16, int device,
+                        void* stream) {
+  namespace sr = stream_route;
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = 4 * H, slices = sr::splits(G);
+  float* wt = static_cast<float*>(scratch);
+  float* part = wt + (size_t)G * H;
+  float* pdxp = static_cast<float*>(dxp);
+  if ((err = sr::transpose(static_cast<const float*>(w), wt, G, H, st)) != cudaSuccess)
+    return (int)err;
+  const size_t smem = sr::smem_bytes(G);
+  if ((err = sr::allow_smem(lstm_seq_bwd_stream_products, smem)) != cudaSuccess) return (int)err;
+  const dim3 grid((H + 4 * kStreamWarps - 1) / (4 * kStreamWarps), slices,
+                  (B + sr::kRows - 1) / sr::kRows);
+  const unsigned cells = (unsigned)(((size_t)B * H + kCellThreads - 1) / kCellThreads);
+  for (int t = T - 1; t >= -1; --t) {
+    if (t < T - 1) {
+      lstm_seq_bwd_stream_products<<<grid, 32 * kStreamWarps, smem, st>>>(
+          pdxp + (size_t)(t + 1) * B * G, wt, part, B, H, bf16);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    lstm_seq_bwd_stream_cell<<<cells, kCellThreads, 0, st>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(cseq),
+        static_cast<const float*>(cprev), static_cast<const float*>(dout),
+        static_cast<const float*>(dhT), static_cast<const float*>(dcT), part, pdxp,
+        static_cast<float*>(dh0), static_cast<float*>(dc0), slices, t, T, B, H);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Message for a cudaError_t returned above.

@@ -13,12 +13,14 @@
 // recurrent product (h_{t-1} and W_hh) are rounded to bf16 first, as the TPU
 // kernel does, and nothing else is.
 //
-// Two routes, chosen by the caller before the launch
+// Three routes, chosen by the caller before the launch
 // (ops/fused_rnn.py::lstm_seq_fwd_route): "mma" (below, after the direct
 // kernel: batch groups, the tensor cores, h exchanged as step-tagged words)
 // for the widths and batches where it was measured faster -- H = 512 at the
-// beam-encode and training batches among them -- and "direct" for every
-// other shape.
+// beam-encode and training batches among them --, "direct" for every other
+// shape whose weights fit its blocks' shared memory, and "stream" (last, on
+// stream.cuh: one launch per step, W_hh read from global memory) for the
+// widths beyond.
 //
 // "direct" route.
 // Design:
@@ -65,6 +67,7 @@
 #include "common.cuh"
 #include "exchange.cuh"
 #include "mma.cuh"
+#include "stream.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -707,6 +710,54 @@ bool serves(int H, int B, int U, int groups, int tiles, int bf16) {
 
 }  // namespace mma_route
 
+// ---------------------------------------------------------------------------
+// The "stream" route (stream.cuh): one launch per step, W_hh read from global
+// memory, for the widths whose weights do not fit the resident routes. A
+// block of kStreamWarps warps takes kStreamWarps units, a warp one unit's
+// gate rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamWarps = 16;
+
+__global__ void __launch_bounds__(32 * kStreamWarps)
+lstm_seq_fwd_stream_kernel(const float* __restrict__ xp, const float* __restrict__ w,
+                           const float* __restrict__ h0, const float* __restrict__ c0,
+                           float* __restrict__ out, float* __restrict__ gates,
+                           float* __restrict__ cseq, float* __restrict__ fin, int t, int T,
+                           int B, int H, int bf16) {
+  namespace sr = stream_route;
+  extern __shared__ float xs[];
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * kStreamWarps + (threadIdx.x >> 5), b0 = blockIdx.y * sr::kRows;
+  const size_t BH = (size_t)B * H, G = 4 * (size_t)H;
+  const float* hp = t > 0 ? out + (t - 1) * BH : h0;
+  float acc[4][sr::kRows], s[4];
+  sr::lane_sums<4>([=](int b, int k) { return hp[(size_t)b * H + k]; },
+                   [=](int g, int k) { return __ldg(w + ((size_t)g * H + j) * H + k); }, 0, H,
+                   B, b0, j < H, bf16, xs, acc);
+  sr::warp_sums<4>(acc, s, lane);
+  const int b = b0 + lane;
+  if (j >= H || lane >= sr::kRows || b >= B) return;
+  const size_t grow = ((size_t)t * B + b) * G + j, hrow = (size_t)b * H + j;
+  const float ig = sigmoid_f(xp[grow] + s[0]);
+  const float fg = sigmoid_f(xp[grow + H] + s[1]);
+  const float gg = tanhf(xp[grow + 2 * H] + s[2]);
+  const float og = sigmoid_f(xp[grow + 3 * H] + s[3]);
+  const float cp = t > 0 ? cseq[(t - 1) * BH + hrow] : c0[hrow];
+  const float c = fg * cp + ig * gg;
+  const float h = og * tanhf(c);
+  gates[grow] = ig;
+  gates[grow + H] = fg;
+  gates[grow + 2 * H] = gg;
+  gates[grow + 3 * H] = og;
+  cseq[t * BH + hrow] = c;
+  out[t * BH + hrow] = h;
+  if (t == T - 1) {
+    fin[hrow] = h;
+    fin[BH + hrow] = c;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -795,6 +846,30 @@ int lstm_seq_fwd_mma(const void* xp, const void* w, const void* h0, const void* 
 #undef S2VT_FWD_MMA
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The stream route: the arguments of lstm_seq_fwd without U, for any H and
+// B; T launches on `stream`, one per step. Returns the cudaError_t of the
+// first call that fails.
+int lstm_seq_fwd_stream(const void* xp, const void* w, const void* h0, const void* c0, void* out,
+                        void* gates, void* cseq, void* fin, int T, int B, int H, int bf16,
+                        int device, void* stream) {
+  if (T < 1 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = stream_route::smem_bytes(H);
+  if ((err = stream_route::allow_smem(lstm_seq_fwd_stream_kernel, smem)) != cudaSuccess)
+    return (int)err;
+  for (int t = 0; t < T; ++t) {
+    lstm_seq_fwd_stream_kernel<<<stream_route::grid(B, H, kStreamWarps), 32 * kStreamWarps,
+                                 smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(xp), static_cast<const float*>(w),
+        static_cast<const float*>(h0), static_cast<const float*>(c0), static_cast<float*>(out),
+        static_cast<float*>(gates), static_cast<float*>(cseq), static_cast<float*>(fin), t, T, B,
+        H, bf16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Message for a cudaError_t returned above.

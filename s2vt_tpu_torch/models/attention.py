@@ -16,8 +16,8 @@ Routes of ``teacher_forced``, chosen by mode, not by failure:
  - with ``use_pallas``, ``att_mode='softmax'`` and no gradient being
    recorded (``torch.is_grad_enabled()`` false: the Trainer's validation
    pass), the decoder loop is one call of the attention-decoder kernel
-   (``ops/fused_att_decode.py``); on a card whose shared memory the kernel's
-   shape gate refuses, it raises;
+   (``ops/fused_att_decode.py``) at every width: a width whose weights do
+   not fit the card's shared memory takes the op's stream route;
  - otherwise the loop runs step by step in PyTorch: the kernel has no
    backward (nor has its TPU counterpart) and implements softmax only.
 
@@ -144,14 +144,7 @@ class AttBaseline(nn.Module):
     def _decode_kernel(self, embed, enc_out, enc_wh, context0):
         """The decoder loop as one call of the attention-decoder kernel:
         embed [B, T, E] -> hs [B, T, H]."""
-        from s2vt_tpu_torch.ops.fused_att_decode import att_decode_sequence, att_decode_shapes_ok
-        L = enc_out.shape[1]
-        if not att_decode_shapes_ok(embed.shape[0], self.dim_hid, L, embed.device,
-                                    self.compute_dtype == torch.bfloat16):
-            raise NotImplementedError(
-                f"the attention-decoder kernel does not serve hidden size {self.dim_hid} at "
-                f"L={L} on {embed.device}: its resident weights do not fit one block per SM; "
-                "build the model with use_pallas=False")
+        from s2vt_tpu_torch.ops.fused_att_decode import att_decode_sequence
         dec, E = self.decoder.l0, self.dim_embed
         emb_part = {"w_ih": dec["w_ih"][:, :E], "b_ih": dec["b_ih"] + dec["b_hh"]}
         xp_t = input_projection(embed, emb_part, self.compute_dtype).transpose(0, 1)

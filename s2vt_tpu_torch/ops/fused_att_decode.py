@@ -21,12 +21,16 @@ reduction, the softmax and every state stay float32.
 ``att_decode_fwd`` launches the hand-written kernels (``csrc/att_decode_fwd.cu``)
 for CUDA tensors and runs ``att_decode_fwd_reference``, the same loop in plain
 PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception. The op has two routes, picked by ``att_decode_fwd_route`` from the
-shapes, the mode and the card before the launch: "mma" (the context product
-folded into one batched tensor-core product P = enc_out @ W_ctx^T ahead of
-the loop, then the loop on batch groups with three step-tagged exchanges
-per step; ``att_decode_plan`` lays it out) and "direct" (the
-grid-synchronised loop on the CUDA cores).
+exception. The op has three routes, picked from the shapes, the mode and the
+card before the launch: "mma" (the context product folded into one batched
+tensor-core product P = enc_out @ W_ctx^T ahead of the loop, then the loop
+on batch groups with three step-tagged exchanges per step;
+``att_decode_plan`` lays it out) and "direct" (the grid-synchronised loop on
+the CUDA cores), both picked by ``att_decode_fwd_route``, and "stream"
+(``csrc/stream.cuh``: four launches per step, the weights read from global
+memory), which ``launch`` runs in place of "direct" where the direct
+blocks' weights do not fit (on an H100, H > 660 at L = 80). So the op
+serves every width on the card.
 """
 
 from __future__ import annotations
@@ -105,6 +109,8 @@ def set_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.att_decode_fwd_mma.restype = ci
     lib.att_decode_fwd_mma_smem_bytes.argtypes = [ci] * 8
     lib.att_decode_fwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.att_decode_fwd_stream.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+    lib.att_decode_fwd_stream.restype = ci
     return lib
 
 
@@ -249,13 +255,15 @@ def att_decode_shapes_ok(batch: int, hidden: int, enc_len: int,
                          device: Optional[torch.device] = None,
                          compute_bf16: bool = False) -> bool:
     """Whether the kernel that ``att_decode_fwd_route`` picks for these shapes
-    and the mode serves them on ``device``: the mma route wherever it is
-    picked (its plan fits the card); the direct route where one block per SM
-    holds its units' gate rows of [W_ctx | W_hh] and W_att rows in opt-in
-    shared memory (on an H100, H <= 660 at L = 80; it takes the batch in
-    tiles of rows and reads the encoder tensors from device memory, so any
-    batch). On the CPU the plain version serves any shapes. (The TPU gate --
-    B % 8, B <= 32, H % 128 -- is a fact of the TPU's VMEM and tiles.)"""
+    and the mode serves them on ``device`` with its weights resident in shared
+    memory, that is on a route other than "stream": the mma route wherever
+    it is picked (its plan fits the card); the direct route where one block
+    per SM holds its units' gate rows of [W_ctx | W_hh] and W_att rows in
+    opt-in shared memory (on an H100, H <= 660 at L = 80; it takes the batch
+    in tiles of rows and reads the encoder tensors from device memory, so any
+    batch). Every other shape runs on the stream route. On the CPU the plain
+    version serves any shapes. (The TPU gate -- B % 8, B <= 32, H % 128 -- is
+    a fact of the TPU's VMEM and tiles.)"""
     if batch < 1 or hidden < 1 or enc_len < 1:
         return False
     device = torch.device(device if device is not None else "cpu")
@@ -295,11 +303,15 @@ def launch(xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0, comp
     """One launch of ``route`` on CUDA tensors checked by the caller (or, to
     time one route beside the other, by chip_smoke.py and the variant tool,
     which may pass its own build as ``lib`` and an mma ``plan``). The mma
-    route is two kernel launches (P, then the loop) and counts as one.
+    route is two kernel launches (P, then the loop) and counts as one; the
+    stream route, 4 T - 2 launches, counts as one too. "direct" where its
+    blocks' weights do not fit one per SM runs as "stream".
     Returns the h sequence [T, B, H]."""
     T, B, G = xp_t.shape
     H, L = G // 4, enc_out.shape[1]
     dev = xp_t.device
+    if route == "direct" and not _layout(H, L, dev)[1]:
+        route = "stream"
     args = tuple(_aligned(t) for t in
                  (xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0))
     out = torch.empty(T, B, H, dtype=torch.float32, device=dev)
@@ -317,11 +329,13 @@ def launch(xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0, comp
                       (*args, out, pbuf, words),
                       (T, B, H, L, plan.units, plan.groups, plan.tiles, int(plan.p_resident),
                        int(plan.e_resident), int(compute_bf16)))
+    elif route == "stream":
+        # [W_ctx | W_hh], then c, dw, ctx and et
+        scratch = torch.empty(12 * H * H + 4 * B * H + B * L, dtype=torch.float32, device=dev)
+        _build.launch(lib or _kernel_lib(), "att_decode_fwd_stream", "att_decode_fwd",
+                      (*args, out, scratch), (T, B, H, L, int(compute_bf16)))
     else:
         units, rows = _layout(H, L, dev)
-        if not rows:
-            raise ValueError(f"att_decode_fwd: hidden size {H} at L={L} does not fit one block "
-                             "per SM (att_decode_shapes_ok)")
         scratch = torch.empty(B * (4 * H + L), dtype=torch.float32, device=dev)
         _build.launch(lib or _kernel_lib(), "att_decode_fwd", "att_decode_fwd",
                       (*args, out, scratch), (T, B, H, L, units, rows, int(compute_bf16)))
@@ -331,7 +345,7 @@ def launch(xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0, comp
 
 
 att_decode_fwd.launches = 0
-att_decode_fwd.route_launches = {"mma": 0, "direct": 0}
+att_decode_fwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
 
 
 def att_decode_sequence(xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0,

@@ -117,29 +117,36 @@ def conv3x3_ok(x_shape: Sequence[int], out_channels: int,
                device: Optional[torch.device] = None) -> bool:
     """Whether the kernel serves input ``x_shape`` (NHWC) with
     ``out_channels`` outputs on ``device``: any H, W, C and K (the first VGG
-    layer's C = 3 included); on the mma route at most 2^31 - 129 output
-    pixels N*H*W per launch, on the direct route at most 65535 images. On the
-    CPU the plain version serves every NHWC shape. (The TPU gate
-    ``conv3x3_shapes_ok`` -- C and K multiples of 64, a VMEM budget -- is a
-    fact of the TPU's tiles and VMEM.)"""
+    layer's C = 3 included) and any batch, split into launches of at most
+    2^31 - 129 output pixels N*H*W on the mma route and at most 65535 images
+    on the direct route; so on the mma route one image may hold at most
+    2^31 - 129 pixels. On the CPU the plain version serves every NHWC
+    shape. (The TPU gate ``conv3x3_shapes_ok`` -- C and K multiples of 64, a
+    VMEM budget -- is a fact of the TPU's tiles and VMEM.)"""
     if len(x_shape) != 4 or min(*x_shape, out_channels) < 1:
         return False
     device = torch.device(device if device is not None else "cpu")
     if device.type != "cuda":
         return True
+    return _images_per_launch(x_shape, out_channels) >= 1
+
+
+def _images_per_launch(x_shape: Sequence[int], out_channels: int) -> int:
+    """The most images of ``x_shape`` (NHWC) one launch of the route takes."""
     N, H, W, C = x_shape
     if conv3x3_route(C, out_channels) == "mma":
-        return N * H * W <= _MAX_PIXELS
-    return N <= _MAX_GRID_Z
+        return _MAX_PIXELS // (H * W)
+    return _MAX_GRID_Z
 
 
 def conv3x3_bn_relu(x, weight, scale, shift, compute_bf16: bool = False) -> torch.Tensor:
     """relu(conv3x3_same(x, weight) * scale + shift) (the reference's
     contract): x [N, H, W, C] float32 or bf16, weight [3, 3, C, K], scale and
     shift [K]. CUDA tensors launch the kernel of ``conv3x3_route(C, K)`` once
-    and add one to ``conv3x3_bn_relu.launches`` and to
-    ``conv3x3_bn_relu.route_launches[route]``; CPU tensors run the plain
-    version."""
+    (a batch beyond one launch's grid: once per slice of the batch that fits
+    it) and add one to ``conv3x3_bn_relu.launches`` and to
+    ``conv3x3_bn_relu.route_launches[route]`` per launch; CPU tensors run the
+    plain version."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_reference(x, weight, scale, shift, compute_bf16)
     _check_args(x, weight, scale, shift)
@@ -147,8 +154,8 @@ def conv3x3_bn_relu(x, weight, scale, shift, compute_bf16: bool = False) -> torc
     K = weight.shape[3]
     route = conv3x3_route(C, K)
     if not conv3x3_ok(x.shape, K, x.device):
-        raise ValueError(f"conv3x3_bn_relu: input {tuple(x.shape)} exceeds the {route} "
-                         f"kernel's grid ({_MAX_PIXELS} pixels or {_MAX_GRID_Z} images)")
+        raise ValueError(f"conv3x3_bn_relu: an image of {tuple(x.shape)} exceeds the {route} "
+                         f"kernel's grid ({_MAX_PIXELS} pixels)")
     mmd = torch.bfloat16 if compute_bf16 else torch.float32
     args = [x.to(mmd).contiguous(), weight.to(mmd).contiguous(),
             scale.float().contiguous(), shift.float().contiguous()]
@@ -156,10 +163,14 @@ def conv3x3_bn_relu(x, weight, scale, shift, compute_bf16: bool = False) -> torc
     if route == "mma":        # 16-byte copies: a view at an odd offset gets its own storage
         args[:2] = [t if t.data_ptr() % 16 == 0 else t.clone() for t in args[:2]]
     out = torch.empty(N, H, W, K, dtype=mmd, device=x.device)
-    _build.launch(_kernel_lib(), _ENTRY[route], "conv3x3_bn_relu", (*args, out),
-                  (N, H, W, C, K, int(compute_bf16)))
-    conv3x3_bn_relu.launches += 1
-    conv3x3_bn_relu.route_launches[route] += 1
+    step = _images_per_launch(x.shape, K)
+    for n0 in range(0, N, step):          # slices along N of contiguous NHWC stay contiguous
+        n = min(step, N - n0)
+        _build.launch(_kernel_lib(), _ENTRY[route], "conv3x3_bn_relu",
+                      (args[0][n0:n0 + n], *args[1:], out[n0:n0 + n]),
+                      (n, H, W, C, K, int(compute_bf16)))
+        conv3x3_bn_relu.launches += 1
+        conv3x3_bn_relu.route_launches[route] += 1
     return out
 
 

@@ -131,9 +131,11 @@ def argmax_linear_route(hidden: int, weight_dtype: torch.dtype, compute_bf16: bo
 def argmax_linear_ok(batch, hidden: int, vocab: int,
                      device: Optional[torch.device] = None) -> bool:
     """Whether the kernel serves [batch, hidden] x [vocab, hidden] on
-    ``device``: on a card, a 32-row tile of h in float32 must fit a block's
-    opt-in shared memory for the direct route, the one that serves every
-    shape (on an H100, hidden <= 1816); any batch and vocab size are tiled.
+    ``device``: on a card, a 32-row tile of a chunk of h (at most 1792 values
+    of k, in float32) must fit a block's opt-in shared memory for the direct
+    route, the one that serves every shape (on an H100, any hidden size: the
+    direct route stages h in chunks of k, and the mma route's shared memory
+    does not grow with it); any batch and vocab size are tiled.
     On the CPU the plain version serves every shape. (The TPU gate
     ``pallas_decode.argmax_linear_ok`` -- B % 8, B <= 2048, H % 128, a
     128-multiple vocab block -- is a fact of the TPU's tiles and VMEM.)"""
@@ -236,17 +238,17 @@ def greedy_pick(out_w, out_b, valid_vocab: Optional[int], compute_dtype, use_pal
     """The token picker of a greedy step, h [B, H] -> ids [B]: with
     ``use_pallas``, one ``argmax_linear`` per step (on CPU tensors its plain
     version), raising on a card whose shared memory ``argmax_linear_ok``
-    refuses for this hidden size; in bf16, where the mma route reads W as
-    bf16, the weight is rounded to bf16 here, once per decode (bit for bit
-    what each step would round). Without ``use_pallas``: ``apply_linear``,
-    ``mask_invalid_vocab`` and ``torch.argmax``. The first maximum wins
-    either way."""
+    refuses for this hidden size (an H100 serves every width); in bf16,
+    where the mma route reads W as bf16, the weight is rounded to bf16 here,
+    once per decode (bit for bit what each step would round). Without
+    ``use_pallas``: ``apply_linear``, ``mask_invalid_vocab`` and
+    ``torch.argmax``. The first maximum wins either way."""
     if use_pallas:
         if not argmax_linear_ok(1, out_w.shape[1], out_w.shape[0], out_w.device):
             raise NotImplementedError(
                 f"the argmax_linear kernel does not serve hidden size {out_w.shape[1]} on "
-                f"{out_w.device}: a 32-row tile of h does not fit a block's shared memory; "
-                "build the model with use_pallas=False")
+                f"{out_w.device}: a 32-row tile of a chunk of h does not fit a block's shared "
+                "memory; build the model with use_pallas=False")
         bf16 = compute_dtype == torch.bfloat16
         w = pick_weight(out_w, compute_dtype)
         return lambda h: argmax_linear(h.contiguous(), w, out_b, valid_vocab, bf16)

@@ -27,9 +27,13 @@ outside the kernel (``pallas_gru.py:236-240``).
 (``csrc/gru_seq_fwd.cu``, ``csrc/gru_seq_bwd.cu``) for CUDA tensors and run
 ``gru_seq_fwd_reference`` / ``gru_seq_bwd_reference``, the same recurrences
 in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception. Each has two kernels, its "mma" and "direct" routes, picked by
-``gru_seq_fwd_route`` and ``gru_seq_bwd_route`` from the shapes, the mode
-and the card before the launch.
+exception. Each has three routes, picked by ``gru_seq_fwd_route`` and
+``gru_seq_bwd_route`` from the shapes, the mode and the card before the
+launch: "mma" and "direct", and "stream" (``csrc/stream.cuh``), launches
+per step (one forward, two backward) with W_hh read from global memory,
+where the width's weights do not fit the shared memory of the resident
+routes' blocks (on an H100, H > ~1050). So the kernels serve every width on
+the card.
 """
 
 from __future__ import annotations
@@ -145,6 +149,8 @@ def set_fwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gru_seq_fwd_mma.restype = ci
     lib.gru_seq_fwd_mma_smem_bytes.argtypes = [ci] * 4
     lib.gru_seq_fwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.gru_seq_fwd_stream.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+    lib.gru_seq_fwd_stream.restype = ci
     return lib
 
 
@@ -167,6 +173,10 @@ def set_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gru_seq_bwd_mma.restype = ci
     lib.gru_seq_bwd_mma_smem_bytes.argtypes = [ci] * 4
     lib.gru_seq_bwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.gru_seq_bwd_stream.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+    lib.gru_seq_bwd_stream.restype = ci
+    lib.gru_seq_bwd_stream_scratch_floats.argtypes = [ci, ci]
+    lib.gru_seq_bwd_stream_scratch_floats.restype = ctypes.c_size_t
     return lib
 
 
@@ -203,14 +213,15 @@ def gru_seq_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):
 
     CUDA tensors (contiguous) launch the kernel of ``gru_seq_fwd_route``
     once and add one to ``gru_seq_fwd.launches`` and to
-    ``gru_seq_fwd.route_launches[route]``; CPU tensors run the plain
+    ``gru_seq_fwd.route_launches[route]`` (the stream route's T step
+    launches are that one launch of the op); CPU tensors run the plain
     version."""
     _build.check_device("gru_seq_fwd", x_proj_t)
     return _gru_seq_fwd_op(x_proj_t, w_hh, b_hh, h0, compute_bf16)
 
 
 gru_seq_fwd.launches = 0
-gru_seq_fwd.route_launches = {"mma": 0, "direct": 0}
+gru_seq_fwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
 
 _GATES = 3                         # gate rows per unit: mma_plan's layout of csrc/gru_seq_fwd.cu
 _MMA_MAX_BATCH = 200               # the largest batch either mma route was measured faster at
@@ -257,6 +268,23 @@ def _route(plan, hidden: int, batch: int, compute_bf16: bool, device) -> str:
     return "mma" if plan(hidden, batch, compute_bf16, props) else "direct"
 
 
+def fwd_direct_fits(hidden: int, props) -> bool:
+    """Whether the forward's direct route serves hidden size ``hidden`` on a
+    card of ``props`` (anything with ``sms`` and ``smem_optin``): the three
+    gate rows of W_hh of its units, one block per SM, fit a block's opt-in
+    shared memory."""
+    units = units_per_block(hidden, props.sms)
+    return _fwd_lib().gru_seq_fwd_smem_bytes(hidden, units) <= props.smem_optin
+
+
+def bwd_direct_fits(hidden: int, props) -> bool:
+    """Whether the backward's direct route serves hidden size ``hidden`` on
+    a card of ``props``: one of its instantiations keeps one block per SM,
+    and that block's W_hh columns fit its opt-in shared memory."""
+    units = _bwd_lib().gru_seq_bwd_units_per_block(hidden, props.sms)
+    return units > 0 and _bwd_lib().gru_seq_bwd_smem_bytes(hidden, units) <= props.smem_optin
+
+
 def gru_mma_plan(hidden: int, batch: int, compute_bf16: bool, props,
                  units: Optional[int] = None):
     """The forward's mma-route layout (``_plan`` at ``_measured_units``)."""
@@ -267,7 +295,8 @@ def gru_seq_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> st
     """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
     mode ``compute_bf16`` on ``device`` (a card, or its ``CardProps`` or
     ``_build.Card``): "mma" where ``gru_mma_plan`` serves and B <= 200,
-    else "direct" (the grid-synchronised kernel on the CUDA cores). On an
+    else "direct" (the grid-synchronised kernel on the CUDA cores; where its
+    weights do not fit, ``launch_fwd`` runs it as the "stream" route). On an
     NVIDIA H100 80GB HBM3 at 700 W the mma route was faster in all 60 cells
     of tools/gru_fwd_variants.py --route sweep (H = 512, B in 1, 2, 4, 8,
     16, 24, 32, 48, 64, 80, 96, 112, 128, 160, 200, T = 80 and 159, both
@@ -285,10 +314,14 @@ def launch_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16, route, lib=None, plan=Non
     """One launch of ``route``'s kernel on CUDA tensors checked by the
     caller (or, to time one route beside the other, by chip_smoke.py and
     the variant tool, which may pass its own build as ``lib`` and an mma
-    ``plan``). Returns (h seq, gates, gh_n seq, hT)."""
+    ``plan``). Returns (h seq, gates, gh_n seq, hT). "direct" where its
+    blocks' W_hh rows do not fit (``fwd_direct_fits``) runs as "stream": one
+    launch per step, W_hh read from global memory."""
     T, B, G = x_proj_t.shape
     H = G // 3
     dev = x_proj_t.device
+    if route == "direct" and not fwd_direct_fits(H, _build.card(dev)):
+        route = "stream"
     outs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     ghn = torch.empty_like(outs)
     gates = torch.empty_like(x_proj_t)
@@ -304,6 +337,9 @@ def launch_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16, route, lib=None, plan=Non
                           device=dev)
         _build.launch(lib or _fwd_lib(), "gru_seq_fwd_mma", "gru_seq_fwd", tensors + (xch,),
                       (T, B, H, plan.units, plan.groups, plan.tiles, int(compute_bf16)))
+    elif route == "stream":
+        _build.launch(lib or _fwd_lib(), "gru_seq_fwd_stream", "gru_seq_fwd", tensors,
+                      (T, B, H, int(compute_bf16)))
     else:
         units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
         _build.launch(lib or _fwd_lib(), "gru_seq_fwd", "gru_seq_fwd", tensors,
@@ -318,7 +354,8 @@ def gru_seq_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16: bool):
 
     CUDA tensors (contiguous) launch the kernel of ``gru_seq_bwd_route``
     once and add one to ``gru_seq_bwd.launches`` and to
-    ``gru_seq_bwd.route_launches[route]``; CPU tensors run the plain
+    ``gru_seq_bwd.route_launches[route]`` (the stream route's T + 1 step
+    launches are that one launch of the op); CPU tensors run the plain
     version."""
     if gates.device.type == "cpu":
         return gru_seq_bwd_reference(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16)
@@ -330,7 +367,7 @@ def gru_seq_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16: bool):
 
 
 gru_seq_bwd.launches = 0
-gru_seq_bwd.route_launches = {"mma": 0, "direct": 0}
+gru_seq_bwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
 
 
 def gru_bwd_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool) -> int:
@@ -377,7 +414,8 @@ def gru_seq_bwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> st
     ``batch`` and the mode ``compute_bf16`` on ``device`` (a card, or its
     ``CardProps`` or ``_build.Card``): "mma" where ``gru_bwd_mma_plan``
     serves and B <= 200, else "direct" (the grid-synchronised kernel on the
-    CUDA cores). On an NVIDIA H100 80GB HBM3 at 700 W the mma route was
+    CUDA cores; where its weights do not fit, ``launch_bwd`` runs it as the
+    "stream" route). On an NVIDIA H100 80GB HBM3 at 700 W the mma route was
     faster in all 76 cells of tools/gru_bwd_variants.py --route sweep (H =
     512, B in 1, 2, 4, 8, 12, 14, 16, 18, 20, 24, 32, 48, 64, 80, 96, 112,
     128, 160, 200, T = 80 and 159, both modes, the two routes in turns):
@@ -395,10 +433,15 @@ def launch_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16, route, lib=None
     """One launch of the backward's ``route`` on CUDA tensors checked by the
     caller (or, to time one route beside the other, by chip_smoke.py and the
     variant tool, which may pass its own build as ``lib`` and an mma
-    ``plan``). Returns (dxp, dghn, dh0)."""
+    ``plan``). Returns (dxp, dghn, dh0). "direct" where its blocks' W_hh
+    columns do not fit (``bwd_direct_fits``) runs as "stream": per
+    iteration, the recurrent products in slices, then the cells, W_hh^T
+    (transposed once per call into scratch) read from global memory."""
     T, B, G = gates.shape
     H = G // 3
     dev = gates.device
+    if route == "direct" and not bwd_direct_fits(H, _build.card(dev)):
+        route = "stream"
     dxp = torch.empty_like(gates)
     dghn = torch.empty_like(ghn)
     dh0 = torch.empty(B, H, dtype=torch.float32, device=dev)
@@ -412,6 +455,12 @@ def launch_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16, route, lib=None
         xch = torch.zeros(2 * B * H, dtype=torch.int64, device=dev)
         _build.launch(lib or _bwd_lib(), "gru_seq_bwd_mma", "gru_seq_bwd", tensors + (xch,),
                       (T, B, H, plan.units, plan.groups, plan.tiles, int(compute_bf16)))
+    elif route == "stream":
+        lib = lib or _bwd_lib()
+        scratch = torch.empty(lib.gru_seq_bwd_stream_scratch_floats(B, H),
+                              dtype=torch.float32, device=dev)     # W_hh^T, partial sums
+        _build.launch(lib, "gru_seq_bwd_stream", "gru_seq_bwd", tensors + (scratch,),
+                      (T, B, H, int(compute_bf16)))
     else:
         units = _bwd_units(H, dev, lib)
         if not units:
@@ -432,22 +481,18 @@ def _bwd_units(hidden: int, device: torch.device, lib=None) -> int:
 
 
 def gru_seq_shapes_ok(hidden: int, device: Optional[torch.device] = None) -> bool:
-    """Whether the GRU sequence kernels serve hidden size ``hidden`` on
-    ``device``: on a card, each direct route's blocks fit one per SM with
-    their resident weights in opt-in shared memory (on an H100, H <= ~1050);
-    the direct routes serve every batch, the mma routes the shapes their
-    route functions send them. On the
-    CPU the plain versions serve any width. (The TPU gate
-    ``pallas_shapes_ok`` -- B % 8, B <= 96, H % 128 -- is a fact of the TPU's
-    VMEM and tiles.)"""
+    """Whether both GRU sequence kernels serve hidden size ``hidden`` on
+    ``device`` with their weights resident in shared memory, that is on a
+    route other than "stream": on a card, each direct route's blocks fit one
+    per SM with their W_hh rows in opt-in shared memory (on an H100,
+    H <= ~1050). Every width is served either way; on the CPU the plain
+    versions serve it. (The TPU gate ``pallas_shapes_ok`` -- B % 8, B <= 96,
+    H % 128 -- is a fact of the TPU's VMEM and tiles.)"""
     device = torch.device(device if device is not None else "cpu")
     if device.type != "cuda":
         return True
-    props = torch.cuda.get_device_properties(device)
-    sms, smem = props.multi_processor_count, props.shared_memory_per_block_optin
-    units = _bwd_units(hidden, device)
-    return (_fwd_lib().gru_seq_fwd_smem_bytes(hidden, units_per_block(hidden, sms)) <= smem
-            and units > 0 and _bwd_lib().gru_seq_bwd_smem_bytes(hidden, units) <= smem)
+    props = _build.card(device)
+    return fwd_direct_fits(hidden, props) and bwd_direct_fits(hidden, props)
 
 
 class _GRUSeq(torch.autograd.Function):

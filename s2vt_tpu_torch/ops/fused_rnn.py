@@ -21,10 +21,14 @@ float32 matrix product outside the kernel (``pallas_rnn.py:295-298``).
 (``csrc/lstm_seq_fwd.cu``, ``csrc/lstm_seq_bwd.cu``) for CUDA tensors and run
 ``lstm_seq_fwd_reference`` / ``lstm_seq_bwd_reference``, the same recurrences
 in plain PyTorch, only for CPU tensors. A CUDA tensor reaches a kernel or an
-exception. Each has two kernels: the forward its "mma" and "direct" routes,
-picked by ``lstm_seq_fwd_route``, the backward its "cluster" and "direct"
-routes, picked by ``lstm_seq_bwd_route``, each from the shapes, the mode and
-the card before the launch.
+exception. Each has three routes: the forward "mma" and "direct", picked by
+``lstm_seq_fwd_route``, the backward "cluster" and "direct", picked by
+``lstm_seq_bwd_route``, each from the shapes, the mode and the card before
+the launch; and for both "stream" (``csrc/stream.cuh``), launches per step
+(one forward, two backward) with W_hh read from global memory, where the
+width's weights do not fit the shared memory of the resident routes'
+blocks (on an H100, H > ~1050). So the kernels serve every width on the
+card, as the TPU kernels serve every width their gate admits.
 """
 
 from __future__ import annotations
@@ -130,6 +134,8 @@ def set_fwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lstm_seq_fwd_mma.restype = ci
     lib.lstm_seq_fwd_mma_smem_bytes.argtypes = [ci] * 4
     lib.lstm_seq_fwd_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.lstm_seq_fwd_stream.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+    lib.lstm_seq_fwd_stream.restype = ci
     return lib
 
 
@@ -156,6 +162,10 @@ def set_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lstm_seq_bwd_cluster_smem_bytes.restype = ctypes.c_size_t
     lib.lstm_seq_bwd_cluster_active.argtypes = [ci, ctypes.POINTER(ci)]
     lib.lstm_seq_bwd_cluster_active.restype = ci
+    lib.lstm_seq_bwd_stream.argtypes = [vp] * 11 + [ci] * 5 + [vp]
+    lib.lstm_seq_bwd_stream.restype = ci
+    lib.lstm_seq_bwd_stream_scratch_floats.argtypes = [ci, ci]
+    lib.lstm_seq_bwd_stream_scratch_floats.restype = ctypes.c_size_t
     return lib
 
 
@@ -194,7 +204,8 @@ def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
 
     CUDA tensors (contiguous) launch the kernel of ``lstm_seq_fwd_route``
     once and add one to ``lstm_seq_fwd.launches`` and to
-    ``lstm_seq_fwd.route_launches[route]``; CPU tensors run the plain
+    ``lstm_seq_fwd.route_launches[route]`` (the stream route's T step
+    launches are that one launch of the op); CPU tensors run the plain
     version."""
     _build.check_device("lstm_seq_fwd", x_proj_t)
     outs, gates, cseq, fin = _lstm_seq_fwd_op(x_proj_t, w_hh, h0, c0, compute_bf16)
@@ -202,7 +213,7 @@ def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
 
 
 lstm_seq_fwd.launches = 0
-lstm_seq_fwd.route_launches = {"mma": 0, "direct": 0}
+lstm_seq_fwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
 
 
 def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
@@ -210,7 +221,8 @@ def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
 
     CUDA tensors (contiguous) launch the kernel of ``lstm_seq_bwd_route``
     once and add one to ``lstm_seq_bwd.launches`` and to
-    ``lstm_seq_bwd.route_launches[route]``; CPU tensors run the plain
+    ``lstm_seq_bwd.route_launches[route]`` (the stream route's T + 1 step
+    launches are that one launch of the op); CPU tensors run the plain
     version."""
     if gates.device.type == "cpu":
         return lstm_seq_bwd_reference(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16)
@@ -222,7 +234,7 @@ def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
 
 
 lstm_seq_bwd.launches = 0
-lstm_seq_bwd.route_launches = {"cluster": 0, "direct": 0}
+lstm_seq_bwd.route_launches = {"cluster": 0, "direct": 0, "stream": 0}
 
 # The cluster route (csrc/lstm_seq_bwd.cu, namespace cluster_route): the
 # shape of its clusters and blocks.
@@ -297,8 +309,9 @@ def lstm_seq_bwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> s
     mode ``compute_bf16`` on ``device`` (a card, or its ``CardProps``):
     in bf16 "cluster" where ``cluster_serves`` (H = 512 at every batch up to
     208 on an H100), else "direct" (the grid-synchronised kernel on the CUDA
-    cores). Float32 always takes "direct": on an NVIDIA H100 80GB HBM3 at
-    700 W the cluster route's three TF32 passes made it slower there at
+    cores; where its weights do not fit, ``launch_bwd`` runs it as the
+    "stream" route). Float32 always takes "direct": on an NVIDIA H100 80GB
+    HBM3 at 700 W the cluster route's three TF32 passes made it slower there at
     every measured shape (H = 512: 0.7069 against 0.6480 ms at B = 16,
     T = 159; 3.0059 against 2.7962 at B = 96; 0.3699 against 0.3218 at
     B = 16, T = 80), and faster in bf16 (0.5645 against 0.7365 ms at B = 16,
@@ -313,10 +326,16 @@ def lstm_seq_bwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> s
 def launch_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16, route, lib=None):
     """One launch of ``route``'s kernel on CUDA tensors checked by the
     caller (or, to time one route beside the other, by chip_smoke.py and
-    the variant tool, which may pass its own build as ``lib``)."""
+    the variant tool, which may pass its own build as ``lib``). "direct"
+    where its blocks' W_hh columns do not fit (``bwd_direct_fits``) runs as
+    "stream": per iteration, the recurrent products in slices, then the
+    cells, W_hh^T (transposed once per call into scratch) read from global
+    memory."""
     T, B, G = gates.shape
     H = G // 4
     dev = gates.device
+    if route == "direct" and not bwd_direct_fits(H, _build.card(dev)):
+        route = "stream"
     dxp = torch.empty_like(gates)
     dh0 = torch.empty(B, H, dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
@@ -327,6 +346,12 @@ def launch_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16, route, li
         xch = torch.zeros(2 * B * G, dtype=torch.int64, device=dev)
         _build.launch(lib or _bwd_lib(), "lstm_seq_bwd_cluster", "lstm_seq_bwd",
                       outs + (xch,), (T, B, H, int(compute_bf16)))
+    elif route == "stream":
+        lib = lib or _bwd_lib()
+        scratch = torch.empty(lib.lstm_seq_bwd_stream_scratch_floats(B, H),
+                              dtype=torch.float32, device=dev)     # W_hh^T, partial sums
+        _build.launch(lib, "lstm_seq_bwd_stream", "lstm_seq_bwd", outs + (scratch,),
+                      (T, B, H, int(compute_bf16)))
     else:
         units = _bwd_units(H, dev)
         if not units:
@@ -344,6 +369,23 @@ def _bwd_units(hidden: int, device: torch.device) -> int:
     its instantiations keeps one block per SM)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return _bwd_lib().lstm_seq_bwd_units_per_block(hidden, sms)
+
+
+def fwd_direct_fits(hidden: int, props) -> bool:
+    """Whether the forward's direct route serves hidden size ``hidden`` on a
+    card of ``props`` (anything with ``sms`` and ``smem_optin``): the four
+    gate rows of W_hh of its units, one block per SM, fit a block's opt-in
+    shared memory."""
+    units = units_per_block(hidden, props.sms)
+    return _fwd_lib().lstm_seq_fwd_smem_bytes(hidden, units) <= props.smem_optin
+
+
+def bwd_direct_fits(hidden: int, props) -> bool:
+    """Whether the backward's direct route serves hidden size ``hidden`` on
+    a card of ``props``: one of its instantiations keeps one block per SM,
+    and that block's W_hh columns fit its opt-in shared memory."""
+    units = _bwd_lib().lstm_seq_bwd_units_per_block(hidden, props.sms)
+    return units > 0 and _bwd_lib().lstm_seq_bwd_smem_bytes(hidden, units) <= props.smem_optin
 
 
 # The "mma" routes of the per-layer forwards (namespace mma_route of
@@ -432,8 +474,9 @@ def lstm_seq_fwd_route(hidden: int, batch: int, compute_bf16: bool, device) -> s
     """The kernel that serves hidden size ``hidden``, batch ``batch`` and the
     mode ``compute_bf16`` on ``device`` (a card, or its ``CardProps``):
     "mma" where ``mma_plan`` serves and B <= 128, else "direct" (the
-    grid-synchronised kernel on the CUDA cores). On an NVIDIA H100 80GB HBM3
-    at 700 W the mma route was faster at every measured batch up to 128, in
+    grid-synchronised kernel on the CUDA cores; where its weights do not
+    fit, ``launch_fwd`` runs it as the "stream" route). On an NVIDIA H100
+    80GB HBM3 at 700 W the mma route was faster at every measured batch up to 128, in
     both modes, at T = 80 and 159 (tools/lstm_fwd_variants.py --route
     sweep, H = 512, B in 1, 2, 4, 8, 16, 24, 32, 48, 64, 80, 96, 112, 128,
     the two routes in turns): float32, T = 80, 0.2216 against 0.2929 ms at
@@ -454,10 +497,14 @@ def launch_fwd(x_proj_t, w_hh, h0, c0, compute_bf16, route, lib=None, plan=None)
     """One launch of ``route``'s kernel on CUDA tensors checked by the
     caller (or, to time one route beside the other, by chip_smoke.py and
     the variant tool, which may pass its own build as ``lib`` and an mma
-    ``plan``). Returns (h seq, gates, c seq, fin = [hT, cT])."""
+    ``plan``). Returns (h seq, gates, c seq, fin = [hT, cT]). "direct" where
+    its blocks' W_hh rows do not fit (``fwd_direct_fits``) runs as "stream":
+    one launch per step, W_hh read from global memory."""
     T, B, G = x_proj_t.shape
     H = G // 4
     dev = x_proj_t.device
+    if route == "direct" and not fwd_direct_fits(H, _build.card(dev)):
+        route = "stream"
     outs = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     cseq = torch.empty_like(outs)
     gates = torch.empty_like(x_proj_t)
@@ -473,6 +520,9 @@ def launch_fwd(x_proj_t, w_hh, h0, c0, compute_bf16, route, lib=None, plan=None)
                           device=dev)
         _build.launch(lib or _fwd_lib(), "lstm_seq_fwd_mma", "lstm_seq_fwd", tensors + (xch,),
                       (T, B, H, plan.units, plan.groups, plan.tiles, int(compute_bf16)))
+    elif route == "stream":
+        _build.launch(lib or _fwd_lib(), "lstm_seq_fwd_stream", "lstm_seq_fwd", tensors,
+                      (T, B, H, int(compute_bf16)))
     else:
         units = units_per_block(H, torch.cuda.get_device_properties(dev).multi_processor_count)
         _build.launch(lib or _fwd_lib(), "lstm_seq_fwd", "lstm_seq_fwd", tensors,
@@ -483,20 +533,18 @@ def launch_fwd(x_proj_t, w_hh, h0, c0, compute_bf16, route, lib=None, plan=None)
 
 
 def lstm_seq_shapes_ok(hidden: int, device: Optional[torch.device] = None) -> bool:
-    """Whether the sequence kernels serve hidden size ``hidden`` on
-    ``device``: on a card, each kernel's blocks fit one per SM with their
-    resident weights in opt-in shared memory (on an H100, H <= ~1050). On the
-    CPU the plain versions serve any width. (The TPU gate
-    ``pallas_shapes_ok`` -- B % 8, B <= 96, H % 128 -- is a fact of the TPU's
-    VMEM and tiles.)"""
+    """Whether both kernels serve hidden size ``hidden`` on ``device`` with
+    their weights resident in shared memory, that is on a route other than
+    "stream": on a card, each direct route's blocks fit one per SM with their
+    W_hh rows in opt-in shared memory (on an H100, H <= ~1050). Every width
+    is served either way; on the CPU the plain versions serve it. (The TPU
+    gate ``pallas_shapes_ok`` -- B % 8, B <= 96, H % 128 -- is a fact of the
+    TPU's VMEM and tiles.)"""
     device = torch.device(device if device is not None else "cpu")
     if device.type != "cuda":
         return True
-    props = torch.cuda.get_device_properties(device)
-    sms, smem = props.multi_processor_count, props.shared_memory_per_block_optin
-    units = _bwd_units(hidden, device)
-    return (_fwd_lib().lstm_seq_fwd_smem_bytes(hidden, units_per_block(hidden, sms)) <= smem
-            and units > 0 and _bwd_lib().lstm_seq_bwd_smem_bytes(hidden, units) <= smem)
+    props = _build.card(device)
+    return fwd_direct_fits(hidden, props) and bwd_direct_fits(hidden, props)
 
 
 class _LSTMSeq(torch.autograd.Function):

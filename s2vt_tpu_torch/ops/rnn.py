@@ -12,8 +12,8 @@ The cells are explicit rather than ``nn.LSTM`` because the reference's bf16
 mode (bf16 matmul operands, float32 state and gate math) is not what
 ``nn.LSTM`` does in bf16. The input projection of a whole sequence is one
 matmul outside the time loop. With ``use_pallas``, ``TorchRNN`` runs every
-layer through the per-layer sequence kernels: ``ops/fused_rnn.py`` for an
-LSTM, ``ops/fused_gru.py`` for a GRU.
+layer, at every width, through the per-layer sequence kernels:
+``ops/fused_rnn.py`` for an LSTM, ``ops/fused_gru.py`` for a GRU.
 """
 
 from __future__ import annotations
@@ -206,21 +206,10 @@ class TorchRNN(nn.Module):
         """xs [B, T, in] -> (outputs [B, T, H*dirs], finals per layer). With
         ``use_pallas``, each layer and direction runs through the sequence
         kernels of its cell type (on CPU tensors: their plain versions), as
-        the JAX module routes to its Pallas kernels; on a card whose shared
-        memory or SM count ``lstm_seq_shapes_ok`` / ``gru_seq_shapes_ok``
-        refuses for this width, it raises."""
-        sequence_fn = rnn_sequence
-        if self.use_pallas:
-            if self.rnn_type == "lstm":
-                from s2vt_tpu_torch.ops.fused_rnn import lstm_seq_shapes_ok as shapes_ok
-            else:
-                from s2vt_tpu_torch.ops.fused_gru import gru_seq_shapes_ok as shapes_ok
-            if not shapes_ok(self.hidden_size, xs.device):
-                raise NotImplementedError(
-                    f"the {self.rnn_type.upper()} sequence kernels do not serve hidden size "
-                    f"{self.hidden_size} on {xs.device}: their resident weights do not fit one "
-                    "block per SM; build the model with use_pallas=False")
-            sequence_fn = kernel_sequence
+        the JAX module routes to its Pallas kernels. The kernels serve every
+        width on the card: a width whose weights do not fit their blocks'
+        shared memory takes their "stream" route."""
+        sequence_fn = kernel_sequence if self.use_pallas else rnn_sequence
         return multilayer_rnn(xs, self.layers, h0, self.rnn_type, self.bidirectional,
                               self.dropout, generator, deterministic, self.compute_dtype,
                               sequence_fn)

@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from s2vt_tpu_torch.utils.device import resolve_device
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
@@ -27,8 +29,9 @@ def initialize(coordinator_address: Optional[str] = None,
     """Initialize the default process group. ``coordinator_address``
     ("host:port"), ``num_processes`` and ``process_id`` default to
     torchrun's ``MASTER_ADDR:MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``.
-    ``device``: "cuda" (the default where a card is present: NCCL, each
-    process on card ``LOCAL_RANK``) or "cpu" (gloo).
+    ``device``: "cuda" (the default: NCCL, each process on card
+    ``LOCAL_RANK``; without a card it raises, through
+    ``utils/device.py::resolve_device``) or "cpu" (gloo, asked for).
 
     As JAX's: a second call does nothing; a single process with no
     coordinator does nothing; an explicit multi-process configuration that
@@ -48,9 +51,7 @@ def initialize(coordinator_address: Optional[str] = None,
         return                                   # one process, no coordinator: nothing to do
     num_processes = 1 if num_processes is None else num_processes
     process_id = 0 if process_id is None else process_id
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     card = None
     if device.type == "cuda":
         local = int(env.get("LOCAL_RANK", process_id % max(torch.cuda.device_count(), 1)))

@@ -482,7 +482,7 @@ def _forced(args, bf16, route, plan=None):
     got = fad.launch(*args, bf16, route, plan=plan)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"mma": 0, "direct": 0, route: 1}
+        {"mma": 0, "direct": 0, "stream": 0, route: 1}
     return got
 
 
@@ -515,7 +515,7 @@ def test_routes_match_plain_on_card(T, B, H, L, bf16):
     got = fn(*args, bf16)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"mma": 0, "direct": 0, route: 1}
+        {"mma": 0, "direct": 0, "stream": 0, route: 1}
     _check(got, want, bf16, (route, T, B, H, L))
 
 
@@ -608,7 +608,7 @@ def test_teacher_forced_on_the_route_against_the_per_step_route():
         got = model(feats, targets, deterministic=True)
         torch.cuda.synchronize()
         assert {k: fn.route_launches[k] - before[k] for k in before} == \
-            {"mma": 0, "direct": 0, route: 1}
+            {"mma": 0, "direct": 0, "stream": 0, route: 1}
         model.use_pallas = False
         want = model(feats, targets, deterministic=True)
     assert (got - want).abs().max().item() <= 1e-4

@@ -50,13 +50,19 @@ def test_route_of_ragged_widths(C, K, route):
 
 
 def test_gate_follows_the_route():
-    """On the card the mma kernel takes up to 2^31 - 129 pixels N*H*W, the
-    direct kernel up to 65535 images; the CPU takes every NHWC shape."""
+    """On the card one mma launch takes up to 2^31 - 129 pixels N*H*W and
+    one direct launch up to 65535 images; a larger batch is split into
+    launches of that many images, so only an mma image beyond 2^31 - 129
+    pixels is refused. The CPU takes every NHWC shape."""
     cuda = torch.device("cuda")
     assert fused_conv.conv3x3_ok((70000, 8, 8, 64), 64, cuda)          # mma
-    assert not fused_conv.conv3x3_ok((70000, 8, 8, 3), 64, cuda)       # direct
+    assert fused_conv.conv3x3_ok((70000, 8, 8, 3), 64, cuda)           # direct, 2 launches
+    assert fused_conv._images_per_launch((70000, 8, 8, 3), 64) == 65535
     assert fused_conv.conv3x3_ok((320, 224, 224, 64), 64, cuda)
-    assert not fused_conv.conv3x3_ok((43000, 224, 224, 64), 64, cuda)
+    assert fused_conv.conv3x3_ok((43000, 224, 224, 64), 64, cuda)      # mma, 2 launches
+    assert fused_conv._images_per_launch((43000, 224, 224, 64), 64) == 42799
+    assert not fused_conv.conv3x3_ok((1, 50000, 50000, 64), 64, cuda)
+    assert fused_conv.conv3x3_ok((1, 50000, 50000, 64), 64)
     assert fused_conv.conv3x3_ok((43000, 224, 224, 64), 64)
 
 

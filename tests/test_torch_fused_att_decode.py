@@ -161,11 +161,36 @@ def test_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stream_route_matches_plain_on_card(dtype):
+    """The stream route (three launches per step, the weights read from
+    global memory) against the plain version on the card: asked for by name
+    at the MSVD width and at a width and batch that leave its blocks part
+    empty, and taken by the op itself at the S2VT paper's 1000 units, whose
+    weights do not fit one block per SM. Bounds as
+    test_kernels_match_plain_on_card."""
+    _card()
+    bf16 = dtype == "bf16"
+    atol = 3e-2 if bf16 else 1e-4
+    for T, B, H, L in ((79, 16, 512, 80), (7, 19, 130, 9), (20, 16, 1000, 80)):
+        forced = fad.att_decode_shapes_ok(B, H, L, "cuda", bf16)
+        assert forced == (H < 1000)
+        args = [torch.from_numpy(a).cuda() for a in _inputs(T, B, H, L, seed=5)]
+        before = fad.att_decode_fwd.route_launches["stream"]
+        got = fad.launch(*args, bf16, "stream") if forced else fad.att_decode_fwd(*args, bf16)
+        torch.cuda.synchronize()
+        assert fad.att_decode_fwd.route_launches["stream"] == before + 1
+        err = (got - fad.att_decode_fwd_reference(*args, bf16)).abs().max().item()
+        assert err <= atol, (T, B, H, L, err)
+
+
+@pytest.mark.cuda
 def test_teacher_forced_on_card_routes_by_gradient_and_width():
     """On the card, AttBaseline.teacher_forced launches the kernel once under
     no_grad and never with a gradient, and both give the CPU (plain) route's
-    logits; a width whose weights do not fit one block per SM raises under
-    no_grad instead of running the per-step loop."""
+    logits; a width whose weights do not fit one block per SM (1024) still
+    launches the kernel once under no_grad, on its stream route, and gives
+    the CPU (plain) route's logits."""
     _card()
     from s2vt_tpu_torch.models import AttBaseline
     kw = dict(vocab_size=32, dim_feat=16, length=6, dim_embed=128, use_pallas=True)
@@ -185,8 +210,12 @@ def test_teacher_forced_on_card_routes_by_gradient_and_width():
         assert fad.att_decode_fwd.launches == before + launches
         np.testing.assert_allclose(got.detach().cpu().numpy(), want.numpy(), atol=1e-4, rtol=0)
     assert not fad.att_decode_shapes_ok(8, 1024, 6, "cuda")
-    wide = AttBaseline(dim_hid=1024, **kw).cuda()
-    before = fad.att_decode_fwd.launches
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="hidden size 1024"):
-        wide(feats.cuda(), targets.cuda())
-    assert fad.att_decode_fwd.launches == before
+    wide = AttBaseline(dim_hid=1024, **kw)
+    wide.reset_parameters(torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        want = wide.eval()(feats, targets)
+        before = dict(fad.att_decode_fwd.route_launches)
+        got = wide.cuda()(feats.cuda(), targets.cuda())
+    torch.cuda.synchronize()
+    assert fad.att_decode_fwd.route_launches == {**before, "stream": before["stream"] + 1}
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=0)

@@ -146,3 +146,20 @@ def test_kernel_matches_plain_on_card(bf16):
                                      torch.zeros(64, device="cuda"), bf16).float().cpu()
     assert (out[0, 4, 4, 0].item(), out[0, 0, 0, 0].item(), out[0, 0, 4, 0].item()) == \
         (9 * 64, 4 * 64, 6 * 64)
+
+
+@pytest.mark.cuda
+def test_batch_beyond_one_grid_splits_into_launches_on_card():
+    """A direct-route batch of more than 65535 images (C = 3, the first
+    VGG16 layer's) runs as two launches of the kernel, one per slice of the
+    batch that its grid holds, and matches the plain version. Bound 1e-4."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [torch.from_numpy(a).cuda() for a in _inputs(4, 65600, 4, 4, 3, 8)]
+    assert fused_conv.conv3x3_route(3, 8) == "direct"
+    before = fused_conv.conv3x3_bn_relu.route_launches["direct"]
+    got = fused_conv.conv3x3_bn_relu(*args, False)
+    torch.cuda.synchronize()
+    assert fused_conv.conv3x3_bn_relu.route_launches["direct"] == before + 2
+    want = fused_conv.conv3x3_bn_relu_reference(*args, False)
+    assert (got - want).abs().max().item() <= 1e-4

@@ -225,6 +225,36 @@ def test_kernel_matches_plain_on_card(bf16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_both_routes_serve_wide_rows_on_card(bf16):
+    """Widths past one 1792-value chunk of h (the direct route stages h in
+    chunks of k; the mma route's shared memory does not grow with H): the
+    gate serves them, and each route matches the plain version, exactly on
+    integer inputs full of ties and up to near-ties (top two within 1e-5
+    relative) on random ones; a 2048-wide S2VT's decode shape among them."""
+    _card()
+    for b, h, v, integer in ((16, 2048, 10240, False), (40, 1800, 3000, False),
+                             (5, 4000, 777, False), (33, 2050, 2500, True)):
+        assert fused_decode.argmax_linear_ok(b, h, v, "cuda")
+        args = [torch.from_numpy(a).cuda() for a in _inputs(8, b, h, v, integer)]
+        want = fused_decode.argmax_linear_reference(*args, None, bf16)
+        hh, ww, bb = (a.double() for a in args)
+        if bf16:
+            hh, ww = hh.to(torch.bfloat16).double(), ww.to(torch.bfloat16).double()
+        top2 = (hh @ ww.T + bb).topk(2, dim=1).values.cpu().numpy()
+        near = (top2[:, 0] - top2[:, 1]) <= 1e-5 * np.abs(top2[:, 0])
+        for route in ("direct", "mma"):
+            w = args[1].to(torch.bfloat16) if bf16 and route == "mma" else args[1]
+            if route == "mma" and fused_decode.argmax_linear_route(
+                    h, w.dtype, bf16, (args[0].data_ptr(), w.data_ptr())) != "mma":
+                continue
+            got = fused_decode._launch(args[0], w, args[2], None, bf16, route)
+            torch.cuda.synchronize()
+            diff = (got != want).cpu().numpy()
+            assert not (diff & ~(near & (not integer))).any(), (route, b, h, v)
+
+
+@pytest.mark.cuda
 def test_greedy_on_card_launches_the_kernel_once_per_step():
     """S2VT.greedy with use_pallas on the card: the fused forward once and
     the argmax kernel once per decode step, the CPU (plain) route's tokens."""

@@ -414,17 +414,63 @@ def test_kernels_match_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
-def test_torchrnn_on_card_raises_where_the_kernels_do_not_fit():
-    """A width whose resident weights do not fit in shared memory raises on
-    the card rather than running the op-by-op scan there."""
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stream_route_matches_plain_on_card(dtype):
+    """The stream route of both kernels (one launch per step, W_hh read from
+    global memory) against their plain versions on the card: asked for by
+    name at widths the resident routes serve (the MSVD width; a width and a
+    batch that leave a block's units and rows part empty), and taken by the
+    ops themselves at widths whose weights do not fit shared memory (2048;
+    at 1100 the backward's, whose direct route would need more blocks than
+    the card has SMs). Bounds as test_kernels_match_plain_on_card."""
     _card()
-    assert fused_gru.gru_seq_shapes_ok(1000, "cuda") and not fused_gru.gru_seq_shapes_ok(
-        2048, "cuda")
-    m = TorchRNN(2048, 8, rnn_type="gru", use_pallas=True).cuda()
-    before = fused_gru.gru_seq_fwd.launches
-    with pytest.raises(NotImplementedError, match="hidden size 2048"):
-        m(torch.zeros(2, 3, 8, device="cuda"))
-    assert fused_gru.gru_seq_fwd.launches == before
+    bf16 = dtype == "bf16"
+    atol = 1.5e-3 if bf16 else 1e-4
+    for b, t, h in ((16, 20, 512), (37, 5, 130), (3, 4, 1100), (16, 12, 2048)):
+        assert fused_gru.gru_seq_shapes_ok(h, "cuda") == (h < 1100)
+        card = fused_gru._build.card("cuda")
+        fargs = [torch.from_numpy(a).cuda() for a in _fwd_inputs(12, b, t, h)]
+        bargs = _bwd_inputs(12, bf16, b, t, h, device="cuda")
+        for fn, launch, ref, args, fits in (
+                (fused_gru.gru_seq_fwd, fused_gru.launch_fwd, fused_gru.gru_seq_fwd_reference, fargs,
+                 fused_gru.fwd_direct_fits),
+                (fused_gru.gru_seq_bwd, fused_gru.launch_bwd, fused_gru.gru_seq_bwd_reference, bargs,
+                 fused_gru.bwd_direct_fits)):
+            forced = fits(h, card)
+            before = fn.route_launches["stream"]
+            got = launch(*args, bf16, "stream") if forced else fn(*args, bf16)
+            torch.cuda.synchronize()
+            assert fn.route_launches["stream"] == before + 1
+            for g, w in zip(got, ref(*args, bf16)):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                assert (g - w).abs().max().item() <= atol, (fn.__name__, b, t, h)
+
+
+@pytest.mark.cuda
+def test_torchrnn_on_card_streams_where_the_weights_do_not_fit():
+    """A width whose weights do not fit the resident routes' shared memory
+    (2048) still runs the GRU sequence kernels on the card, on their stream
+    route, as the JAX module runs its Pallas kernels at that width: one
+    launch of each kernel, outputs and gradients within the card bounds of
+    the CPU (plain) module's on the same weights."""
+    _card()
+    assert fused_gru.gru_seq_shapes_ok(1000, "cuda")
+    assert not fused_gru.gru_seq_shapes_ok(2048, "cuda")
+    m = TorchRNN(2048, 8, rnn_type="gru", use_pallas=True)
+    xs = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 3, 8)).astype(np.float32))
+    before = [dict(f.route_launches) for f in (fused_gru.gru_seq_fwd, fused_gru.gru_seq_bwd)]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        mm = TorchRNN(2048, 8, rnn_type="gru", use_pallas=True).to(dev)
+        mm.load_state_dict(m.state_dict())
+        out, _ = mm(xs.to(dev))
+        out.square().sum().backward()
+        res[dev] = [out.detach().cpu()] + [p.grad.cpu() for p in mm.parameters()]
+    torch.cuda.synchronize()
+    for f, was in zip((fused_gru.gru_seq_fwd, fused_gru.gru_seq_bwd), before):
+        assert f.route_launches == {**was, "stream": was["stream"] + 1}
+    for g, w in zip(res["cuda"], res["cpu"]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-4, rtol=2e-3)
 
 
 @pytest.mark.cuda

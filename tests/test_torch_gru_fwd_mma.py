@@ -433,7 +433,7 @@ def _forced(args, bf16, route, plan=None):
     got = fused_gru.launch_fwd(*args, bf16, route, plan=plan)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"mma": 0, "direct": 0, route: 1}
+        {"mma": 0, "direct": 0, "stream": 0, route: 1}
     return got
 
 
@@ -456,7 +456,7 @@ def test_mma_route_matches_plain_on_card(B, T, bf16):
     got = fn(*args, bf16)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"mma": 0, "direct": 0, route: 1}
+        {"mma": 0, "direct": 0, "stream": 0, route: 1}
     _check(got, want, bf16, (route, B, T, bf16))
 
 
@@ -547,7 +547,8 @@ def test_two_layer_gru_torchrnn_on_the_mma_route():
         if dev == "cuda":
             torch.cuda.synchronize()
             assert fused_gru.gru_seq_fwd.route_launches == {
-                "mma": before["mma"] + 2, "direct": before["direct"]}
+                "mma": before["mma"] + 2, "direct": before["direct"],
+                "stream": before["stream"]}
         res[dev] = [out.detach().cpu()] + [p.grad.cpu() for p in mm.parameters()]
     for g, w in zip(res["cuda"], res["cpu"]):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-3, rtol=2e-3)

@@ -274,7 +274,7 @@ def _routed_call(args, bf16, route):
     got = fn(*args, bf16)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"cluster": 0, "direct": 0, route: 1}
+        {"cluster": 0, "direct": 0, "stream": 0, route: 1}
     return got
 
 

@@ -459,7 +459,7 @@ def _forced(args, bf16, route):
     got = fused_rnn.launch_fwd(*args, bf16, route)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"mma": 0, "direct": 0, route: 1}
+        {"mma": 0, "direct": 0, "stream": 0, route: 1}
     return got
 
 
@@ -482,7 +482,7 @@ def test_mma_route_matches_plain_on_card(B, T, bf16):
     got = fn(*args, bf16)
     torch.cuda.synchronize()
     assert {k: fn.route_launches[k] - before[k] for k in before} == \
-        {"mma": 0, "direct": 0, route: 1}
+        {"mma": 0, "direct": 0, "stream": 0, route: 1}
     _check((got[0], got[1], got[2], torch.stack(got[3:])), want, bf16, (route, B, T, bf16))
 
 
@@ -571,7 +571,8 @@ def test_two_layer_torchrnn_on_the_mma_route():
         if dev == "cuda":
             torch.cuda.synchronize()
             assert fused_rnn.lstm_seq_fwd.route_launches == {
-                "mma": before["mma"] + 2, "direct": before["direct"]}
+                "mma": before["mma"] + 2, "direct": before["direct"],
+                "stream": before["stream"]}
         res[dev] = [out.detach().cpu()] + [p.grad.cpu() for p in mm.parameters()]
     for g, w in zip(res["cuda"], res["cpu"]):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-3, rtol=2e-3)
@@ -592,7 +593,8 @@ def test_beam_on_the_mma_route():
     before = dict(fused_rnn.lstm_seq_fwd.route_launches)
     got = model.cuda().beam(feats.cuda(), 3, 8)
     assert fused_rnn.lstm_seq_fwd.route_launches == {"mma": before["mma"] + 2,
-                                                     "direct": before["direct"]}
+                                                     "direct": before["direct"],
+                                                     "stream": before["stream"]}
     np.testing.assert_array_equal(got.tokens.cpu().numpy(), want.tokens.numpy())
     np.testing.assert_allclose(got.scores.cpu().numpy(), want.scores.numpy(), atol=1e-4)
 

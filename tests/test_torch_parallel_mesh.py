@@ -213,6 +213,76 @@ def test_initialize_without_a_coordinator(monkeypatch):
     assert not dist.is_initialized()
 
 
+def test_initialize_with_a_coordinator_and_no_card_raises(monkeypatch):
+    """With a coordinator and no card, the default device is the card:
+    initialize raises (utils/device.py::resolve_device) and nothing is
+    initialized, rather than quietly starting a gloo group on the CPU; asked
+    for the CPU, it starts gloo."""
+    import torch.distributed as dist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    port = _free_port()
+    for var, value in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)),
+                       ("WORLD_SIZE", "1"), ("RANK", "0")):
+        monkeypatch.setenv(var, value)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize()
+    assert not dist.is_initialized()
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cpu", timeout_s=60)
+    try:
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert distributed.process_count() == 1 and distributed.process_index() == 0
+    finally:
+        distributed.shutdown()
+    assert not dist.is_initialized()
+
+
+def _vocab_pick_cases(rank, h, w, b):
+    """vocab.greedy_pick with use_pallas on a (1, 2) mesh's vocab shards:
+    each pick's tokens and the calls of argmax_linear_value it made."""
+    from s2vt_tpu_torch.ops import fused_decode
+    from s2vt_tpu_torch.parallel import vocab
+    shard = vocab.make_shard(mesh_lib.make_mesh((1, 2), "cpu"), w.shape[0])
+    rows = slice(shard.offset, shard.offset + shard.rows)
+    calls, out = [], {}
+    value = fused_decode.argmax_linear_value
+    fused_decode.argmax_linear_value = lambda *a: calls.append(a[1].shape) or value(*a)
+    try:
+        for cdt in (None, torch.bfloat16):
+            for valid in (None, 20):
+                calls.clear()
+                pick = vocab.greedy_pick(w[rows], b[rows], valid, cdt, True, shard)
+                out[(cdt is not None, valid)] = (pick(h), list(calls))
+    finally:
+        fused_decode.argmax_linear_value = value
+    return out
+
+
+@pytest.fixture(scope="module")
+def vocab_picks():
+    gen = torch.Generator().manual_seed(4)
+    h = torch.randn(16, 24, generator=gen)
+    w, b = torch.randn(32, 24, generator=gen), torch.randn(32, generator=gen)
+    return (h, w, b), spawn_gloo(_vocab_pick_cases, (h, w, b), world=2)
+
+
+@pytest.mark.parametrize("valid", [None, 20])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_vocab_shard_picker_calls_the_kernel_per_shard(vocab_picks, bf16, valid):
+    """On 2 vocab shards with use_pallas: one argmax_linear_value per shard
+    and step, and every rank's tokens equal the whole-vocab plain pick
+    exactly (valid 20: the upper shard all padding)."""
+    from s2vt_tpu_torch.ops.fused_decode import greedy_pick
+    (h, w, b), ranks = vocab_picks
+    cdt = torch.bfloat16 if bf16 else None
+    want = greedy_pick(w, b, valid, cdt, False)(h)
+    for res in ranks:
+        tokens, calls = res[(bf16, valid)]
+        assert torch.equal(tokens, want)
+        assert calls == [(16, 24)]
+
+
 def _jax_sharded_leaves(jax_mod, model_kw, vocab, model_size):
     """The leaves that JAX's param_shardings splits over 'model', as port
     state_dict keys."""
