@@ -1,0 +1,9 @@
+"""The share (%) of the train loop's untraced window in which the card had
+nothing to do: one less its busy time a step in the traced span over the
+window's seconds a step (``harness.device_idle``)."""
+
+from benchmark import harness
+
+
+def read(ctx):
+    return harness.device_idle(ctx, "train")

@@ -1,0 +1,35 @@
+"""The cells' files at a size the CPU tests hold: every width and count
+shrunk, the keys and the loops as they are.
+
+The caption mix (``traffic/caption-b96.json``) has no cell yet; its tiny
+runs name it ``lstm.caption`` or ``gru.caption`` and take that
+configuration, with the logit-gap limits its loop was calibrated to on
+the card at B=512 (PERF.md)."""
+
+from benchmark import harness
+
+WIDTHS = dict(feat_dim=16, length=6, dim_hidden=64, dim_embed=64, vocab_size=256, train_clips=16)
+CAPTION = {"lstm.caption": ("s2vt-lstm-msvd", {"logit_gap": 5e-06}),
+           "gru.caption": ("s2vt-gru-msvd", {"logit_gap": 2e-05})}
+
+
+def _caption_files(workload: str) -> tuple:
+    config, limits = CAPTION[workload]
+    cfg = harness.load_json(harness.HERE / "configs" / f"{config}.json")
+    traffic = harness.load_json(harness.HERE / "traffic" / "caption-b96.json")
+    cell = {"name": workload, "config": config, "traffic": "caption-b96", "chips": 1}
+    return cell, cfg, traffic, limits
+
+
+def tiny_files(workload: str) -> tuple:
+    """(entry, config, traffic, limits) of ``workload`` at the tiny size."""
+    if workload in CAPTION:
+        cell, cfg, traffic, limits = _caption_files(workload)
+    else:
+        cell, cfg, traffic, limits = harness.cell_files(harness.benchmark_spec(), workload)
+    traffic = dict(traffic, batch=4)
+    if traffic["loop"] == "train":
+        traffic.update(valid_clips=4, traced_epochs=1)
+    else:
+        traffic.update(pool_clips=16, traced_requests=2, check_requests=2, warmup_requests=1)
+    return cell, dict(cfg, **WIDTHS), traffic, limits
