@@ -88,7 +88,7 @@ class Opt:
     donate_state: bool = True
     log_dir: str = "./runs"
     resume_path: str = ""    # checkpoint dir to resume training from
-    profile: bool = False    # jax.profiler trace of the first epoch -> log_dir
+    profile: bool = False    # torch.profiler trace of the first epoch -> log_dir
     metric_eval_freq: int = 0  # every N epochs: greedy-decode the valid
     #   split and log BLEU/METEOR/ROUGE-L/CIDEr (0 = off; new capability,
     #   the reference only tracks losses)

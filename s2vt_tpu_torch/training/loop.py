@@ -29,6 +29,10 @@ checkpoints), on one device:
    ``log_dir/profile`` (``utils/profiling.py``); a tensorboardX writer (where
    it imports) logs the reference's scalars, the metric eval's and weight
    histograms every ``histogram_freq`` epochs into ``log_dir``.
+ - The train loop's host work is named on a profiler's timeline while one
+   records (``utils/profiling.py::annotate``; nothing otherwise): the feed
+   (``s2vt.feed.batch``, ``.send``, ``.take``), each step (``s2vt.step``
+   and its parts) and the epoch's sync (``s2vt.epoch.sync``).
  - With ``Opt.async_checkpoint`` the periodic and best checkpoints are
    written on a thread of their own from a device snapshot taken at the
    call (``training/checkpoint.py``); 'final' waits for them all.
@@ -74,6 +78,7 @@ from s2vt_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau
 from s2vt_tpu_torch.training.checkpoint import (load_training_state, save_training_state,
                                                 wait_for_saves)
 from s2vt_tpu_torch.utils.device import resolve_device
+from s2vt_tpu_torch.utils.profiling import annotate
 from s2vt_tpu_torch.utils.weights import params_from_jax, unflatten_params
 
 # Process-level device feature banks (Opt.feature_bank_cache): (feats dir,
@@ -166,6 +171,21 @@ def _broadcast_object(obj):
     box = [obj]
     dist.broadcast_object_list(box, src=0)
     return box[0]
+
+
+def _spanned(batches):
+    """``batches``, each ``next()`` of it inside an ``s2vt.feed.batch``
+    span that closes before the batch is yielded; closing this closes
+    ``batches``."""
+    try:
+        while True:
+            with annotate("s2vt.feed.batch"):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
+    finally:
+        batches.close()
 
 
 def _dropout_seed(seed: int, epoch: int, step: int) -> int:
@@ -339,7 +359,7 @@ class Trainer:
                              feat_rows=self._rows)
         if streamed:
             batches = read_ahead(batches, depth - 1)
-        return prefetch_to_device(batches, self._send, depth=depth)
+        return prefetch_to_device(_spanned(batches), self._send, depth=depth)
 
     def _send(self, batch: Batch):
         """Start a host batch's copy to the device: labels, mask, valid and
@@ -347,38 +367,40 @@ class Trainer:
         from pinned memory on the Trainer's copy stream; returns the device
         tensors and the event after them (None on the CPU). With a mesh, the
         rank's rows of the batch (streamed features are read for them only)."""
-        dev, stream = self.device, self._copy_stream
-        labels, mask, valid, rows = batch.labels, batch.mask, batch.valid, batch.rows
-        if self._rows is not None:
-            lo, hi = self._rows
-            labels, mask, valid, rows = labels[lo:hi], mask[lo:hi], valid[lo:hi], rows[lo:hi]
-        x = rows if self.use_feature_bank else batch.feats
-        x_dtype = torch.long if self.use_feature_bank else self._feat_dtype
-        if stream is None:
-            return (torch.from_numpy(labels).to(dev, torch.long),
-                    torch.from_numpy(mask).to(dev), torch.from_numpy(valid).to(dev),
-                    torch.from_numpy(x).to(dev, x_dtype)), None
-        with torch.cuda.stream(stream):
-            sent = (_pinned(labels).to(dev, non_blocking=True).long(),
-                    _pinned(mask).to(dev, non_blocking=True),
-                    _pinned(valid).to(dev, non_blocking=True),
-                    _pinned(x).to(dev, non_blocking=True).to(x_dtype))
-            done = stream.record_event()
-        return sent, done
+        with annotate("s2vt.feed.send"):
+            dev, stream = self.device, self._copy_stream
+            labels, mask, valid, rows = batch.labels, batch.mask, batch.valid, batch.rows
+            if self._rows is not None:
+                lo, hi = self._rows
+                labels, mask, valid, rows = labels[lo:hi], mask[lo:hi], valid[lo:hi], rows[lo:hi]
+            x = rows if self.use_feature_bank else batch.feats
+            x_dtype = torch.long if self.use_feature_bank else self._feat_dtype
+            if stream is None:
+                return (torch.from_numpy(labels).to(dev, torch.long),
+                        torch.from_numpy(mask).to(dev), torch.from_numpy(valid).to(dev),
+                        torch.from_numpy(x).to(dev, x_dtype)), None
+            with torch.cuda.stream(stream):
+                sent = (_pinned(labels).to(dev, non_blocking=True).long(),
+                        _pinned(mask).to(dev, non_blocking=True),
+                        _pinned(valid).to(dev, non_blocking=True),
+                        _pinned(x).to(dev, non_blocking=True).to(x_dtype))
+                done = stream.record_event()
+            return sent, done
 
     def _take(self, sent, split: str):
         """(feats, labels, mask, valid) of a batch ``_send`` started, ready
         on the current stream: it waits for the copy, and the tensors are
         marked as used there (``record_stream``), so their memory is not
         handed out again before the step's kernels have read it."""
-        (labels, mask, valid, x), done = sent
-        if done is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(done)
-            for t in (labels, mask, valid, x):
-                t.record_stream(stream)
-        feats = self._bank[split][x] if self.use_feature_bank else x
-        return feats, labels, mask, valid
+        with annotate("s2vt.feed.take"):
+            (labels, mask, valid, x), done = sent
+            if done is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(done)
+                for t in (labels, mask, valid, x):
+                    t.record_stream(stream)
+            feats = self._bank[split][x] if self.use_feature_bank else x
+            return feats, labels, mask, valid
 
     def _put(self, batch: Batch, split: str):
         """(feats, labels, mask, valid) of a host batch, on the device."""
@@ -416,30 +438,43 @@ class Trainer:
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward, loss, backward and one AdamW update. Returns the loss as a
         device scalar (no host sync); with a mesh, this rank's part of the
-        global batch's loss (the data group's parts sum to it)."""
-        with self._global_rows():
-            logits = self.model(feats, labels[:, :-1], mode="train", deterministic=False,
-                                generator=generator)
-        loss = self._loss(logits, labels, mask, valid)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh is not None:
-            self._reduce_grads()
-        self.optimizer.step()
-        return loss.detach()
+        global batch's loss (the data group's parts sum to it). Its parts are
+        spans (``utils/profiling.py::annotate``): ``s2vt.step`` holds
+        ``s2vt.step.forward``, ``.loss``, ``.backward`` (with ``zero_grad``),
+        ``.allreduce`` (with a mesh) and ``.optimizer``."""
+        with annotate("s2vt.step"):
+            with annotate("s2vt.step.forward"), self._global_rows():
+                logits = self.model(feats, labels[:, :-1], mode="train", deterministic=False,
+                                    generator=generator)
+            with annotate("s2vt.step.loss"):
+                loss = self._loss(logits, labels, mask, valid)
+            with annotate("s2vt.step.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if self.mesh is not None:
+                with annotate("s2vt.step.allreduce"):
+                    self._reduce_grads()
+            with annotate("s2vt.step.optimizer"):
+                self.optimizer.step()
+            return loss.detach()
 
     def train_epoch(self, epoch: int) -> tuple:
+        """One epoch of train steps; (mean loss, clips/s). The feed's spans
+        (``s2vt.feed.*``) close before a step's: each batch is taken before
+        its dropout generator (``s2vt.step.seed``) and its ``train_step``."""
         losses = []
         clips = 0
-        t0 = time.time()
+        t0 = time.perf_counter()
         for i, (batch, sent) in enumerate(self._batches("train", epoch)):
-            gen = torch.Generator(device=self.device).manual_seed(
-                _dropout_seed(self.opt.seed, epoch, i))
-            losses.append(self.train_step(*self._take(sent, "train"), generator=gen))
+            inputs = self._take(sent, "train")
+            with annotate("s2vt.step.seed"):
+                gen = torch.Generator(device=self.device).manual_seed(
+                    _dropout_seed(self.opt.seed, epoch, i))
+            losses.append(self.train_step(*inputs, generator=gen))
             clips += int(batch.valid.sum())
-        # the epoch's one sync
-        mean_loss = self._sum_over_data(torch.stack(losses)).mean().item()
-        return mean_loss, clips / max(time.time() - t0, 1e-9)
+        with annotate("s2vt.epoch.sync"):     # the epoch's one sync
+            mean_loss = self._sum_over_data(torch.stack(losses)).mean().item()
+        return mean_loss, clips / max(time.perf_counter() - t0, 1e-9)
 
     @torch.no_grad()
     def valid_epoch(self, epoch: int) -> float:

@@ -1,22 +1,31 @@
-"""Tracing and profiling utilities.
+"""Tracing utilities: the port's one way to trace, on ``torch.profiler``.
 
-Counterpart of ``s2vt_tpu/utils/profiling.py``: ``trace`` captures a
-``torch.profiler`` trace of host and card activity (the CPU and, where a
-card is present, the CUDA activities) and writes it into ``log_dir`` as a
-Chrome trace (``*.pt.trace.json``: ui.perfetto.dev, chrome://tracing or
-TensorBoard's profile plugin); ``annotate`` names a region on that timeline;
-``ThroughputMeter`` counts clips/s (and clips/s per card); ``Timer`` is a
-scoped wall-clock timer.
+``trace`` captures a ``torch.profiler`` trace of host and card activity
+(the CPU and, where a card is present, the CUDA activities) and writes it
+into ``log_dir`` as a Chrome trace (``*.pt.trace.json``: ui.perfetto.dev,
+chrome://tracing or TensorBoard's profile plugin).
+
+``annotate`` names a region of the host's work on that timeline. While a
+torch profiler records (``trace``, or any ``torch.profiler.profile``), a
+region is a ``record_function``: a ``user_annotation`` event in the same
+Chrome trace as the card's kernels and copies, on the profiler's clock, so
+each of the card's idle gaps can be put down to the region the host had
+open. Otherwise it is one shared null context: one read of the profiler's
+Python flag, no allocation, no operator call. The training loop's regions
+(``training/loop.py``) are named ``s2vt.feed.*``, ``s2vt.step`` and
+``s2vt.step.*``, and ``s2vt.epoch.sync``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# The context ``annotate`` hands out while no profiler records.
+NULL_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,47 +43,10 @@ def trace(log_dir: str = "./runs/profile"):
 
 
 def annotate(name: str):
-    """Named region that shows up on the trace timeline."""
-    return torch.profiler.record_function(name)
-
-
-class ThroughputMeter:
-    """clips/sec (and clips/sec/card) over a sliding window."""
-
-    def __init__(self, n_chips: Optional[int] = None):
-        self.n_chips = n_chips if n_chips is not None else (torch.cuda.device_count() or 1)
-        self.reset()
-
-    def reset(self) -> None:
-        self._t0 = time.perf_counter()
-        self._clips = 0
-
-    def update(self, clips: int) -> None:
-        self._clips += clips
-
-    @property
-    def clips_per_sec(self) -> float:
-        dt = max(time.perf_counter() - self._t0, 1e-9)
-        return self._clips / dt
-
-    @property
-    def clips_per_sec_per_chip(self) -> float:
-        return self.clips_per_sec / max(self.n_chips, 1)
-
-    def summary(self) -> Dict[str, float]:
-        cps = self.clips_per_sec  # one snapshot; per-card derives from it
-        return {"clips_per_sec": cps,
-                "clips_per_sec_per_chip": cps / max(self.n_chips, 1),
-                "clips": float(self._clips)}
-
-
-class Timer:
-    """Scoped wall-clock timer: ``with Timer() as t: ...; t.seconds``."""
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self._t0
-        return False
+    """A region named ``name`` on the profiler's timeline while a torch
+    profiler records; else ``NULL_SPAN``. The flag is torch's own Python
+    copy of the profiler's state, set and cleared as a profiler starts and
+    stops, so reading it calls nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return NULL_SPAN

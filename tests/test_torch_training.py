@@ -302,13 +302,6 @@ def test_profile_traces_the_first_train_epoch(corpus, tmp_path):
             torch.ones(3).sum()
     (mine,) = (tmp_path / "mine").glob("*.pt.trace.json")
     assert "my_region" in mine.read_text()
-    meter = profiling.ThroughputMeter()
-    assert meter.n_chips == 1
-    meter.update(10)
-    assert meter.summary()["clips"] == 10.0 and meter.clips_per_sec > 0
-    with profiling.Timer() as t:
-        pass
-    assert t.seconds >= 0
 
 
 def _gate_writes(monkeypatch, gate=None, error=None):
