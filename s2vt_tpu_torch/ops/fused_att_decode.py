@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from s2vt_tpu_torch.ops import _build
+from s2vt_tpu_torch.ops.launches import counted
 from s2vt_tpu_torch.ops.fused_s2vt import _cell, units_per_block
 from s2vt_tpu_torch.ops.layers import mm_operand
 
@@ -344,8 +345,7 @@ def launch(xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0, comp
     return out
 
 
-att_decode_fwd.launches = 0
-att_decode_fwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
+counted(att_decode_fwd, "mma", "direct", "stream")
 
 
 def att_decode_sequence(xp_t, w_ctx, w_hh, w_att, b_att, w_apply, enc_wh, enc_out, ctx0,

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from s2vt_tpu_torch.ops import _build
+from s2vt_tpu_torch.ops.launches import counted
 
 _LIB_NAME = "conv3x3_bn_relu"
 _MAX_GRID_Z = 65535          # the direct kernel's grid holds one image per z index
@@ -174,5 +175,4 @@ def conv3x3_bn_relu(x, weight, scale, shift, compute_bf16: bool = False) -> torc
     return out
 
 
-conv3x3_bn_relu.launches = 0
-conv3x3_bn_relu.route_launches = {"mma": 0, "direct": 0}
+counted(conv3x3_bn_relu, "mma", "direct")

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from s2vt_tpu_torch.ops import _build
+from s2vt_tpu_torch.ops.launches import counted
 from s2vt_tpu_torch.ops.layers import apply_linear, mask_invalid_vocab
 
 _LIB_NAME = "argmax_linear"
@@ -207,8 +208,7 @@ def argmax_linear(h, weight, bias, valid_vocab: Optional[int] = None,
     return _argmax_linear_op(h, weight, bias, valid_vocab, compute_bf16)
 
 
-argmax_linear.launches = 0
-argmax_linear.route_launches = {"mma": 0, "direct": 0}
+counted(argmax_linear, "mma", "direct")
 
 
 def argmax_linear_value(h, weight, bias, valid_vocab: Optional[int] = None,

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from s2vt_tpu_torch.ops import _build
+from s2vt_tpu_torch.ops.launches import counted
 from s2vt_tpu_torch.ops.fused_rnn import CardProps, _check_shapes, mma_plan
 from s2vt_tpu_torch.ops.fused_s2vt import units_per_block
 from s2vt_tpu_torch.ops.layers import mm_operand
@@ -220,8 +221,7 @@ def gru_seq_fwd(x_proj_t, w_hh, b_hh, h0, compute_bf16: bool):
     return _gru_seq_fwd_op(x_proj_t, w_hh, b_hh, h0, compute_bf16)
 
 
-gru_seq_fwd.launches = 0
-gru_seq_fwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
+counted(gru_seq_fwd, "mma", "direct", "stream")
 
 _GATES = 3                         # gate rows per unit: mma_plan's layout of csrc/gru_seq_fwd.cu
 _MMA_MAX_BATCH = 200               # the largest batch either mma route was measured faster at
@@ -366,8 +366,7 @@ def gru_seq_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16: bool):
     return launch_bwd(gates, ghn, hprev, w_hh, dout, dhT, compute_bf16, route)
 
 
-gru_seq_bwd.launches = 0
-gru_seq_bwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
+counted(gru_seq_bwd, "mma", "direct", "stream")
 
 
 def gru_bwd_smem_bytes(hidden: int, units: int, tiles: int, compute_bf16: bool) -> int:

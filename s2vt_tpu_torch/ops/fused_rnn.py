@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from s2vt_tpu_torch.ops import _build
+from s2vt_tpu_torch.ops.launches import counted
 from s2vt_tpu_torch.ops.fused_s2vt import _cell, _cell_bwd, units_per_block
 from s2vt_tpu_torch.ops.layers import mm_operand
 from s2vt_tpu_torch.ops.rnn import LSTMState, input_projection
@@ -212,8 +213,7 @@ def lstm_seq_fwd(x_proj_t, w_hh, h0, c0, compute_bf16: bool):
     return outs, gates, cseq, fin[0], fin[1]
 
 
-lstm_seq_fwd.launches = 0
-lstm_seq_fwd.route_launches = {"mma": 0, "direct": 0, "stream": 0}
+counted(lstm_seq_fwd, "mma", "direct", "stream")
 
 
 def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
@@ -233,8 +233,7 @@ def lstm_seq_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16: bool):
     return launch_bwd(gates, cseq, cprev, w_hh, dout, dhT, dcT, compute_bf16, route)
 
 
-lstm_seq_bwd.launches = 0
-lstm_seq_bwd.route_launches = {"cluster": 0, "direct": 0, "stream": 0}
+counted(lstm_seq_bwd, "cluster", "direct", "stream")
 
 # The cluster route (csrc/lstm_seq_bwd.cu, namespace cluster_route): the
 # shape of its clusters and blocks.

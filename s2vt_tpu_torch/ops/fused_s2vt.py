@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from s2vt_tpu_torch.ops import _build
+from s2vt_tpu_torch.ops.launches import counted
 
 _LIB_NAME = "fused_s2vt_fwd"
 _BWD_LIB_NAME = "fused_s2vt_bwd"
@@ -398,8 +399,7 @@ def fused_s2vt_fwd(x1, x2, w1hh, w2v, w2hh, snap_idx: int):
     return (g1, c1, g2, c2, *fin.unbind(0))
 
 
-fused_s2vt_fwd.launches = 0
-fused_s2vt_fwd.route_launches = {"mma": 0, "direct": 0}
+counted(fused_s2vt_fwd, "mma", "direct")
 
 
 @functools.lru_cache(maxsize=None)
@@ -628,8 +628,7 @@ def fused_s2vt_bwd(g1, c1, g2, c2, dout2, w1hh, w2v, w2hh):
     return launch_bwd(*tensors, route)
 
 
-fused_s2vt_bwd.launches = 0
-fused_s2vt_bwd.route_launches = {"mma": 0, "direct": 0}
+counted(fused_s2vt_bwd, "mma", "direct")
 
 
 def fused_shapes_ok(dim_hid: int, num_layers: int, rnn_type: str,

@@ -45,6 +45,10 @@ checkpoints), on one device:
    out-projection are split over the model group (``parallel/vocab.py``).
    A run equals the one-rank run at the same global batch. Rank 0 alone
    writes checkpoints (whole tensors), logs and prints.
+ - On the card, with no mesh and no dropout, a train step's forward, loss
+   and backward are captured once into a CUDA graph and replayed
+   (``training/step_graph.py``); AdamW stays eager.
+   ``Trainer.step_graph_stats`` counts eager, captured and replayed steps.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -77,6 +81,7 @@ from s2vt_tpu_torch.parallel.vocab import shard_model_
 from s2vt_tpu_torch.training.callbacks import EarlyStopping, ReduceLROnPlateau
 from s2vt_tpu_torch.training.checkpoint import (load_training_state, save_training_state,
                                                 wait_for_saves)
+from s2vt_tpu_torch.training.step_graph import StepGraph
 from s2vt_tpu_torch.utils.device import resolve_device
 from s2vt_tpu_torch.utils.profiling import annotate
 from s2vt_tpu_torch.utils.weights import params_from_jax, unflatten_params
@@ -255,6 +260,9 @@ class Trainer:
         self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=opt.lr,
                                            betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=opt.weight_decay)
+        self._step_graph = StepGraph(self.model, self.device, mesh is not None,
+                                     self._forward_backward)
+        self.step_graph_stats = self._step_graph.stats
 
         # Features are stored (bank) and sent (streaming) in Opt.bank_dtype;
         # every matmul casts its operands to compute_dtype anyway.
@@ -434,42 +442,56 @@ class Trainer:
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
 
+    def _forward_backward(self, feats, labels, mask, valid,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """A step's forward, loss, ``zero_grad`` and backward, eagerly; the
+        loss, detached. What ``StepGraph`` runs or captures."""
+        with annotate("s2vt.step.forward"), self._global_rows():
+            logits = self.model(feats, labels[:, :-1], mode="train", deterministic=False,
+                                generator=generator)
+        with annotate("s2vt.step.loss"):
+            loss = self._loss(logits, labels, mask, valid)
+        with annotate("s2vt.step.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        return loss.detach()
+
     def train_step(self, feats, labels, mask, valid,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward, loss, backward and one AdamW update. Returns the loss as a
-        device scalar (no host sync); with a mesh, this rank's part of the
-        global batch's loss (the data group's parts sum to it). Its parts are
-        spans (``utils/profiling.py::annotate``): ``s2vt.step`` holds
-        ``s2vt.step.forward``, ``.loss``, ``.backward`` (with ``zero_grad``),
-        ``.allreduce`` (with a mesh) and ``.optimizer``."""
+        device scalar of this step's own (no host sync); with a mesh, this
+        rank's part of the global batch's loss (the data group's parts sum to
+        it). The forward, loss and backward run eagerly or from a CUDA graph
+        (``training/step_graph.py``). Its parts are spans
+        (``utils/profiling.py::annotate``): ``s2vt.step`` holds either
+        ``s2vt.step.eager`` around ``s2vt.step.forward``, ``.loss`` and
+        ``.backward`` (with ``zero_grad``), or on a graphed step
+        ``s2vt.step.capture`` or ``.replay`` (the input copy and the graph's
+        launch); then ``.allreduce`` (with a mesh) and ``.optimizer``."""
         with annotate("s2vt.step"):
-            with annotate("s2vt.step.forward"), self._global_rows():
-                logits = self.model(feats, labels[:, :-1], mode="train", deterministic=False,
-                                    generator=generator)
-            with annotate("s2vt.step.loss"):
-                loss = self._loss(logits, labels, mask, valid)
-            with annotate("s2vt.step.backward"):
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
+            loss = self._step_graph.step((feats, labels, mask, valid), generator)
             if self.mesh is not None:
                 with annotate("s2vt.step.allreduce"):
                     self._reduce_grads()
             with annotate("s2vt.step.optimizer"):
                 self.optimizer.step()
-            return loss.detach()
+            return loss
 
     def train_epoch(self, epoch: int) -> tuple:
         """One epoch of train steps; (mean loss, clips/s). The feed's spans
         (``s2vt.feed.*``) close before a step's: each batch is taken before
-        its dropout generator (``s2vt.step.seed``) and its ``train_step``."""
+        its dropout generator (``s2vt.step.seed``; made only where a dropout
+        rate is above 0, so that the step draws from it) and its
+        ``train_step``."""
         losses = []
         clips = 0
         t0 = time.perf_counter()
         for i, (batch, sent) in enumerate(self._batches("train", epoch)):
             inputs = self._take(sent, "train")
             with annotate("s2vt.step.seed"):
-                gen = torch.Generator(device=self.device).manual_seed(
+                gen = (torch.Generator(device=self.device).manual_seed(
                     _dropout_seed(self.opt.seed, epoch, i))
+                    if self._step_graph.draws_random else None)
             losses.append(self.train_step(*inputs, generator=gen))
             clips += int(batch.valid.sum())
         with annotate("s2vt.epoch.sync"):     # the epoch's one sync
