@@ -8,9 +8,11 @@ the cell compares them. For the first ``--control`` seeds the line also
 holds the control's numbers (the reference in TF32 put in the program's
 place) and, for a training cell, those of the fault that leaves half of
 each batch out and takes the mean over the rest (planted in the reference
-put in the program's place). A state left unchanged reads 1 by the
+put in the program's place), or for an extraction cell those of the
+reference with one conv's BatchNorm left out in the program's place and
+of the served clips rotated by one. A state left unchanged reads 1 by the
 measure of ``benchmark/compare.py`` and needs no run. A training cell runs
-its loop with a window of one epoch; a caption cell serves
+its loop with a window of one epoch; a caption or extraction cell serves
 ``check_requests`` requests and judges them all.
 """
 
@@ -27,7 +29,7 @@ import types
 import torch
 
 from benchmark import harness
-from benchmark.loops import caption, train
+from benchmark.loops import caption, extract, train
 
 FAULTS = {"control": {"precision": "tf32"}, "half_batch": {"half_batch": True}}
 
@@ -61,7 +63,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     spec = harness.benchmark_spec()
     cell, cfg, traffic, _ = harness.cell_files(spec, args.workload)
-    readings = {"train": train_readings, "caption": caption_readings}[traffic["loop"]]
+    readings = {"train": train_readings, "caption": caption_readings,
+                "extract": extract.readings}[traffic["loop"]]
     workdir = tempfile.mkdtemp(prefix="s2vt-calibrate-")
     try:
         for k, seed in enumerate(args.seeds):

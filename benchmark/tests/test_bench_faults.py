@@ -2,11 +2,12 @@
 skipped: sound, it comes out correct; with the timed path broken
 underneath, once for each fault the cell can have, it does not."""
 
+import numpy as np
 import pytest
 import torch
 
 from benchmark import run
-from benchmark.tests.tiny import tiny_files
+from benchmark.tests.tiny import EXTRACT, tiny_files
 
 SEED = 2 ** 31 + 11
 
@@ -18,7 +19,7 @@ def _run(workload):
 
 
 @pytest.mark.parametrize("workload", ["lstm.train.b16", "gru.train.b16",
-                                      "lstm.caption", "gru.caption"])
+                                      "lstm.caption", "gru.caption", "vgg16.extract.n80"])
 def test_sound_run_is_correct(workload):
     result = _run(workload)
     assert result["correct"], result["checks"]
@@ -85,15 +86,61 @@ def _half_batch_decoded(monkeypatch):
     monkeypatch.setattr(s2vt.S2VT, "greedy", half)
 
 
+def _bn_left_out(monkeypatch):
+    from s2vt_tpu_torch.ops import fused_conv
+    fold, calls = fused_conv.fold_bn, []
+
+    def fold_missing_one(conv_bias, channels, bn=None, eps=1e-5, device=None):
+        calls.append(1)
+        if len(calls) % 13 == 7:          # the 7th block of every forward
+            bn = None
+        return fold(conv_bias, channels, bn, eps, device)
+    monkeypatch.setattr(fused_conv, "fold_bn", fold_missing_one)
+
+
+def _half_frames(monkeypatch):
+    from s2vt_tpu_torch.extract.pipeline import FeatureExtractor
+    features = FeatureExtractor._features
+
+    def half(self, frames):
+        n = frames.shape[0] // 2
+        kept = features(self, frames[:n])
+        return torch.cat([kept, kept.mean(dim=0, keepdim=True).expand(frames.shape[0] - n, -1)])
+    monkeypatch.setattr(FeatureExtractor, "_features", half)
+
+
+def _clips_rotated(monkeypatch):
+    from s2vt_tpu_torch.extract.pipeline import FeatureExtractor
+    call = FeatureExtractor.__call__
+
+    def rotated(self, frames, valid_count=None):
+        return np.roll(call(self, frames, valid_count), EXTRACT["frames_per_clip"], axis=0)
+    monkeypatch.setattr(FeatureExtractor, "__call__", rotated)
+
+
+def _feature_altered(monkeypatch):
+    from s2vt_tpu_torch.extract import backbones
+    forward = backbones.VGG16.forward
+
+    def altered(self, x):
+        out = forward(self, x).clone()
+        out[0, out[0].argmax()] *= 1.01
+        return out
+    monkeypatch.setattr(backbones.VGG16, "forward", altered)
+
+
 FAULTS = {"train": [_state_unchanged_step, _half_batch_loss, _label_altered],
-          "caption": [_token_altered, _decode_state_unchanged, _half_batch_decoded]}
+          "caption": [_token_altered, _decode_state_unchanged, _half_batch_decoded],
+          "extract": [_bn_left_out, _half_frames, _clips_rotated, _feature_altered]}
 
 
 @pytest.mark.parametrize("workload,fault", [
     (w, f) for w in ("lstm.train.b16", "gru.train.b16")
     for f in FAULTS["train"]] + [
     (w, f) for w in ("lstm.caption", "gru.caption")
-    for f in FAULTS["caption"]], ids=lambda x: getattr(x, "__name__", x))
+    for f in FAULTS["caption"]] + [
+    ("vgg16.extract.n80", f) for f in FAULTS["extract"]],
+    ids=lambda x: getattr(x, "__name__", x))
 def test_fault_is_not_correct(workload, fault, monkeypatch):
     fault(monkeypatch)
     result = _run(workload)
